@@ -1,0 +1,127 @@
+"""The port's serving ops against the JAX package's.
+
+On the CPU the ops run their plain versions; counts must equal the JAX
+``backend="ref"`` ops exactly (and, for the encode op, the Pallas
+kernel in interpret mode).  The CUDA kernels themselves run only on a
+card: ``test_torch_cuda.py`` holds them against the plain versions
+there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.core.bitpack import as_words
+from repro_torch.kernels import ops
+
+SEEDS = np.array([0, -1, 0x7FFFFFFF, -0x80000000, 0x22A, -7], np.int32)
+
+
+def _bank(rng, n, w):
+    return rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+
+
+def _sparse_windows(rng, b, t, w):
+    # ~25% density so counts sit near the threshold
+    a = rng.integers(0, 2**32, (b, t, w), dtype=np.uint32)
+    return a & rng.integers(0, 2**32, (b, t, w), dtype=np.uint32)
+
+
+def _encode_operands(seed, b, n_in, n, t):
+    rng = np.random.default_rng(seed)
+    w = -(-n_in // 32)
+    inten = rng.integers(0, 256, (b, n_in), dtype=np.uint8)
+    inten[0] = 0                               # a silent sample
+    inten[1 % b, : n_in // 2] = 255
+    t_total = rng.integers(0, t + 1, b).astype(np.int32)
+    t_total[0], t_total[-1] = 0, t             # ragged, incl. 0 and T
+    seeds = np.resize(SEEDS, b)
+    return _bank(rng, n, w), inten, seeds, t_total
+
+
+@pytest.mark.parametrize("b,t,n,w", [(3, 9, 33, 7), (4, 16, 40, 25),
+                                     (1, 1, 1, 1)])
+def test_infer_window_batch_plain_matches_jax(b, t, n, w):
+    rng = np.random.default_rng(b * 100 + n)
+    bank, wins = _bank(rng, n, w), _sparse_windows(rng, b, t, w)
+    thr, leak = 3 * w, 2
+    got = ops.infer_window_batch(as_words(bank),
+                                 as_words(wins), threshold=thr,
+                                 leak=leak)
+    want = jops.infer_window_batch(jnp.asarray(bank), jnp.asarray(wins),
+                                   threshold=thr, leak=leak, backend="ref")
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.sum() > 0
+
+
+@pytest.mark.parametrize("b,n_in,n,t", [(6, 200, 33, 9), (4, 784, 40, 24)])
+def test_infer_window_batch_encode_plain_matches_jax(b, n_in, n, t):
+    bank, inten, seeds, t_total = _encode_operands(n_in, b, n_in, n, t)
+    thr, leak = n_in // 8, 3
+    got = ops.infer_window_batch_encode(
+        as_words(bank), torch.from_numpy(inten),
+        torch.from_numpy(seeds), n_steps=t, threshold=thr, leak=leak,
+        t_total=torch.from_numpy(t_total))
+    want = jops.infer_window_batch_encode(
+        jnp.asarray(bank), jnp.asarray(inten), jnp.asarray(seeds),
+        n_steps=t, threshold=thr, leak=leak, t_total=jnp.asarray(t_total),
+        backend="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got[0].any() and got.sum() > 0
+
+
+def test_infer_window_batch_encode_plain_matches_pallas_interp():
+    bank, inten, seeds, t_total = _encode_operands(7, 3, 200, 33, 9)
+    got = ops.infer_window_batch_encode(
+        as_words(bank), torch.from_numpy(inten),
+        torch.from_numpy(seeds), n_steps=9, threshold=25, leak=2,
+        t_total=torch.from_numpy(t_total))
+    want = jops.infer_window_batch_encode(
+        jnp.asarray(bank), jnp.asarray(inten), jnp.asarray(seeds),
+        n_steps=9, threshold=25, leak=2, t_total=jnp.asarray(t_total),
+        backend="interp")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    bank, inten, seeds, t_total = _encode_operands(8, 3, 64, 10, 8)
+    w = as_words(bank)
+    before = ops.launch_counts()
+    for backend in ("kernel", "ref"):
+        enc = ops.infer_window_batch_encode(
+            w, torch.from_numpy(inten), torch.from_numpy(seeds), n_steps=8,
+            threshold=8, leak=1, t_total=t_total, backend=backend)
+        win = ops.infer_window_batch(
+            w, as_words(_sparse_windows(np.random.default_rng(0),
+                                                3, 8, 2)),
+            threshold=8, leak=1, backend=backend)
+        assert enc.shape == win.shape == (3, 10)
+    assert ops.launch_counts() == before
+    with pytest.raises(ValueError):
+        ops.infer_window_batch(w, w[None], threshold=1, leak=0,
+                               backend="interp")
+
+
+def test_default_t_total_and_scalar_seed_broadcast():
+    bank, inten, _, _ = _encode_operands(9, 4, 100, 12, 6)
+    w, x = as_words(bank), torch.from_numpy(inten)
+    full = ops.infer_window_batch_encode(w, x, 5, n_steps=6, threshold=10,
+                                         leak=1)
+    ragged = ops.infer_window_batch_encode(
+        w, x, torch.full((4,), 5, dtype=torch.int32), n_steps=6,
+        threshold=10, leak=1, t_total=[6] * 4)
+    assert torch.equal(full, ragged)
+
+
+def test_seed_vector_takes_seeds_mod_2_32():
+    neg = torch.tensor([-1, -0x80000000, 7], dtype=torch.int32)
+    as_u32 = np.array([-1, -0x80000000, 7], np.int32).view(np.uint32)
+    for seeds in (neg, torch.from_numpy(as_u32.astype(np.int64)),
+                  as_u32.tolist()):
+        got = ops.seed_vector(seeds, 3, torch.device("cpu"))
+        assert got.dtype == torch.int32 and torch.equal(got, neg)
+    assert ops.seed_vector(neg, 3, torch.device("cpu")) is neg
+    assert torch.equal(ops.seed_vector(2**32 + 5, 2, torch.device("cpu")),
+                       torch.tensor([5, 5], dtype=torch.int32))

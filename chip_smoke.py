@@ -6,23 +6,38 @@
 Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 
 1. Device: requires a CUDA card; prints the card's name and power limit.
-2. Build: compiles the serving kernels with ``nvcc`` into ``build/``.
+2. Build: compiles the kernel libraries with ``nvcc`` into ``build/``
+   (``snn_infer.cu`` and ``snn_train.cu``, one compiler each, at once)
+   and prints their ptxas lines.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card (counts must be equal, ``torch.equal``) at the paper's shape
-   (B = 32, 784 inputs, 40 neurons, T = 72, ragged lengths including 0),
-   at the canary's shape, and at a large synthetic shape (B = 16, 65,536
-   inputs, 1,000 neurons); times each and computes its bound.
-4. The slice: Wenquxing 22A intensity requests served through the port's
-   ``SNNServingEngine`` on the card; every request must be SERVED, with
-   no degradation, and equal to the plain version's counts on the CPU;
-   both kernels' launch counts must show the path went through them.
-   Prints the time of each serving step.
+   card (every output ``torch.equal``), then timed, with its bound.
+   Serving kernels: the paper's shape (B = 32, 784 inputs, 40 neurons,
+   T = 72, ragged lengths including 0), the canary's, and a large
+   synthetic one (B = 16, 65,536 inputs, 1,000 neurons).  Training
+   kernels: "train-parallel" (B = 4 streams of 10 neurons, 784 inputs,
+   T = 72, ltp_prob [16, 1023, 1023, 1023]: the trainer's parallel
+   launch at 784-40), "train-active" (B = 1: active mode's launch) and
+   "large" (B = 4, 65,536 inputs, 1,000 neurons, T = 72); the read-only
+   windows at "train-active" and "large" with B = 1.
+4. The serving slice: Wenquxing 22A intensity requests served through
+   the port's ``SNNServingEngine`` on the card; every request must be
+   SERVED, with no degradation, and equal to the plain version's counts
+   on the CPU; both serving kernels' launch counts must show the path
+   went through them.  Prints the time of each serving step.
 5. Trace: more requests of the same traffic served under
    ``torch.profiler`` (the card's busy share of the serving wall time,
    and the host's heaviest operations), then under ``cProfile`` (the
-   serving loop's host time by function).  Each profiler slows what it
-   watches; the step times of both runs are printed beside phase 4's.
-6. Prints the kernels' JSON line, then, last,
+   serving loop's host time by function).
+6. The training slice: ``WENQUXING_22A_INTENSITY`` (784-40, T = 72)
+   trained through the port's ``train()`` on the card, one epoch of
+   procedural digits in each train mode, a short ``encode="host"`` run,
+   and a read-only pass (an inference-only plan's ``train`` verb), with
+   the launch counts set to 0 before and read after; then the same runs
+   with the plain versions on the CPU, which must give equal weights
+   and class maps.  Prints samples/s, ms per presented sample, the test
+   accuracy on 200 digits (not gated) and the launch counts, then one
+   parallel-mode run under ``torch.profiler``.
+7. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -45,6 +60,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/snn_infer.cu"
+TRAIN_SOURCE = "src/repro_torch/kernels/csrc/snn_train.cu"
+PALLAS = "src/repro/kernels/snn_kernels.py"
 
 # H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth.  Integer
 # instruction rates are per SM per clock for compute capability 9.0
@@ -59,6 +76,11 @@ POPC_PER_SM_CLK = 16
 # then mask, compare, shift and or.
 HASH_OPS = 14
 LIF_OPS = 4          # add, compare, subtract-max, count per neuron-cycle
+# u32 operations of the STDP update of one word of a fired row: two LFSR
+# steps (three shifts, three xors, mask, shift, or, mask each), the LTP
+# compare, select and or, the LTD compare, and and select, the popcount
+# sum, the loads and stores of the weight and LFSR words.
+SU_OPS = 30
 
 
 def fail(msg: str) -> None:
@@ -148,8 +170,46 @@ def bound(rates: Rates, *, n: int, words: int, b: int, n_in: int,
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
+def outputs_of(result) -> tuple:
+    return result if isinstance(result, tuple) else (result,)
+
+
+def max_abs_err(got, want) -> int:
+    """Largest difference over every output (bit patterns and rasters
+    as int64)."""
+    return max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                if a.numel() else 0)
+               for a, b in zip(outputs_of(got), outputs_of(want)))
+
+
+def hold_and_time(kname: str, shape: str, call, symbol: str, reps: int,
+                  plain_reps: int, bound_of) -> tuple[dict, tuple]:
+    """Hold ``call("kernel")`` against ``call("ref")`` on the card (every
+    output ``torch.equal``), then time both; ``bound_of(outputs)`` gives
+    the bound from this run's own outputs.  Returns (timings, kernel
+    outputs)."""
+    got = outputs_of(call("kernel"))
+    torch.cuda.synchronize()
+    want = outputs_of(call("ref"))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{kname} at {shape} shape: output {i} differs from its "
+                 f"plain version in {int((a != b).sum())} places")
+    err = max_abs_err(got, want)
+    ms, how = kernel_ms(lambda: call("kernel"), symbol, reps)
+    call_ms = time_ms(lambda: call("kernel"), reps)
+    plain_ms = time_ms(lambda: call("ref"), plain_reps)
+    b_s, b_by = bound_of(got)
+    out = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=1e3 * b_s, bound_by=b_by)
+    print(f"kernel {kname} @ {shape}: equal=True ms={ms} ({how}) "
+          f"call_ms={call_ms} plain_ms={plain_ms} bound_ms={1e3 * b_s} "
+          f"({b_by})", flush=True)
+    return out, got
+
+
 def phase_kernels(rates: Rates) -> dict:
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3, serving kernels against their plain versions."""
     from repro_torch.core.bitpack import as_words
     from repro_torch.core.encoder import encode_windows_host
     from repro_torch.kernels import ops
@@ -186,31 +246,167 @@ def phase_kernels(rates: Rates) -> dict:
         }
         got_by_kernel = {}
         for kname, (call, active, encode, symbol) in calls.items():
-            got = call("kernel")
-            torch.cuda.synchronize()
-            want = call("ref")
-            if not torch.equal(got, want):
-                fail(f"{kname} at {name} shape differs from its plain "
-                     f"version in {int((got != want).sum())} counts")
-            err = int((got - want).abs().max())
-            got_by_kernel[kname] = got
-            ms, how = kernel_ms(lambda: call("kernel"), symbol, reps)
-            call_ms = time_ms(lambda: call("kernel"), reps)
-            plain_ms = time_ms(lambda: call("ref"), plain_reps)
-            b_ms, b_by = bound(rates, n=n, words=words, b=b, n_in=n_in,
-                               active_cycles=active, encode=encode,
-                               t_steps=t)
-            b_ms *= 1e3
-            out[(kname, name)] = dict(max_abs_err=err, ms=ms,
-                                      call_ms=call_ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by)
-            print(f"kernel {kname} @ {name} (B={b}, n_in={n_in}, n={n}, "
-                  f"T={t}): equal=True spikes={int(got.sum())} "
-                  f"ms={ms} ({how}) call_ms={call_ms} plain_ms={plain_ms} "
-                  f"bound_ms={b_ms} ({b_by})", flush=True)
+            timing, got = hold_and_time(
+                kname, f"{name} (B={b}, n_in={n_in}, n={n}, T={t})", call,
+                symbol, reps, plain_reps,
+                lambda _, active=active, encode=encode: bound(
+                    rates, n=n, words=words, b=b, n_in=n_in,
+                    active_cycles=active, encode=encode, t_steps=t))
+            out[(kname, name)] = timing
+            got_by_kernel[kname] = got[0]
+            print(f"kernel {kname} @ {name}: spikes={int(got[0].sum())}",
+                  flush=True)
         if not torch.equal(got_by_kernel["infer_window_batch_encode"],
                            got_by_kernel["infer_window_batch"]):
             fail(f"in-kernel encode and host encode disagree at {name}")
+    return out
+
+
+def train_bound(rates: Rates, *, b: int, n: int, words: int, n_in: int,
+                t_steps: int, fired: int, learn: bool, encode: bool
+                ) -> tuple[float, str]:
+    """Least time (s) of one training or read-only window launch: each
+    input and output crosses HBM once (weights, LFSR, v, teach, the
+    spike rows or intensities, the raster), against the integer work of
+    this run: SPU and LIF for every (stream, cycle, neuron), one draw
+    per (stream, cycle, input) when encoding, and the STDP pass over the
+    words of each of the ``fired`` (row, cycle) pairs."""
+    state = b * n * words * 4
+    moved = state * (4 if learn else 1)   # weights (+ weights', LFSR, LFSR')
+    moved += (b * n_in + 4 * b) if encode else b * t_steps * words * 4
+    moved += 3 * b * n * 4 + b * t_steps * n + (4 * b if learn else 0)
+    cycles = b * t_steps
+    popc = cycles * n * words
+    ints = 2 * popc + cycles * n * (LIF_OPS + 1)
+    if encode:
+        ints += cycles * n_in * HASH_OPS
+    if learn:
+        popc += fired * words
+        ints += fired * words * SU_OPS
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = max(ints / rates.int32_per_s, popc / rates.popc_per_s)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def train_operands(shape: str, dev: torch.device) -> dict:
+    """Inputs of the training kernels at one of phase 3's shapes.  The
+    paper shapes start where the trainer starts (all-ON rows, LFSR lanes
+    from the block seeds, preprocessed digits, teacher currents from the
+    labels); "large" is synthetic."""
+    from repro_torch.core.bitpack import as_words
+    from repro_torch.core.encoder import (encode_windows_host,
+                                          quantize_intensities,
+                                          sample_seeds)
+    from repro_torch.core.rvsnn import snn_regfile_batch
+    from repro_torch.core.stdp import init_weights
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    if shape == "large":
+        b, n_in, n, t = 4, 65536, 1000, 72
+        rng = np.random.default_rng(0x5EED)
+        words = n_in // 32
+        weights = as_words(rng.integers(0, 2**32, (b, n, words),
+                                        dtype=np.uint32))
+        inten = rng.integers(0, 256, (b, n_in), dtype=np.uint8)
+        inten[rng.random((b, n_in)) < 0.6] = 0
+        inten = torch.from_numpy(inten)
+        labels = rng.integers(0, 10, b)
+        kw = dict(threshold=16384, leak=256, w_exp=n_in // 2, gain=4,
+                  n_syn=n_in)
+    else:
+        b = 4 if shape == "train-parallel" else 1
+        n_in, n, t = 784, 10, 72
+        words = -(-n_in // 32)
+        weights = init_weights(n, words, dense=True)[None].repeat(b, 1, 1)
+        x, labels = preprocessed_digits(b, seed=7)
+        inten = quantize_intensities(x)
+        kw = dict(threshold=192, leak=16, w_exp=128, gain=4, n_syn=n_in)
+    rf = snn_regfile_batch(weights, [0x22A + 0x9E37 * i for i in range(b)])
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(labels, dtype=torch.int64) % n, n).to(torch.int32)
+    teach = onehot * 64 + (1 - onehot) * -1024
+    ltp = [16, 1023, 1023, 1023][:b]
+    on = {k: v.to(dev).contiguous() for k, v in dict(
+        weights=rf.weights, lfsr=rf.lfsr, v=rf.v, teach=teach,
+        inten=inten, seeds=sample_seeds(0x22A, b),
+        ltp=torch.tensor(ltp, dtype=torch.int32)).items()}
+    on["wins"] = encode_windows_host(on["seeds"], on["inten"], t, words)
+    return dict(on, b=b, n=n, n_in=n_in, t=t, words=words, kw=kw)
+
+
+def phase_train_kernels(rates: Rates) -> dict:
+    """Phase 3, training and read-only window kernels against their
+    plain versions."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    out = {}
+    for shape in ("train-parallel", "train-active", "large"):
+        o = train_operands(shape, dev)
+        b, n, n_in, t, words, kw = (o[k] for k in ("b", "n", "n_in", "t",
+                                                    "words", "kw"))
+        reps, plain_reps = (20, 3) if shape == "large" else (200, 5)
+        what = f"{shape} (B={b}, n_in={n_in}, n={n}, T={t})"
+
+        def learn_bound(got, encode, b=b, n=n, words=words, n_in=n_in,
+                        t=t):
+            return train_bound(rates, b=b, n=n, words=words, n_in=n_in,
+                               t_steps=t, fired=int(got[2].sum()),
+                               learn=True, encode=encode)
+
+        calls = {
+            "train_window_batch": (
+                lambda be: ops.train_window_batch(
+                    o["weights"], o["wins"], o["v"], o["lfsr"], o["teach"],
+                    ltp_prob=o["ltp"], backend=be, **kw),
+                "train_window_kernel", False),
+            "train_window_batch_encode": (
+                lambda be: ops.train_window_batch_encode(
+                    o["weights"], o["inten"], o["seeds"], o["v"], o["lfsr"],
+                    o["teach"], n_steps=t, ltp_prob=o["ltp"], backend=be,
+                    **kw),
+                "train_window_enc_kernel", True),
+        }
+        rasters = {}
+        for kname, (call, symbol, encode) in calls.items():
+            timing, got = hold_and_time(
+                kname, what, call, symbol, reps, plain_reps,
+                lambda g, encode=encode: learn_bound(g, encode))
+            timing["fired"] = int(got[2].sum())
+            out[(kname, shape)] = timing
+            rasters[kname] = got
+        for a, c in zip(rasters["train_window_batch"],
+                        rasters["train_window_batch_encode"]):
+            if not torch.equal(a, c):
+                fail(f"in-kernel encode and host encode training windows "
+                     f"disagree at {shape}")
+        print(f"train kernels @ {shape}: fired (row, cycle) pairs "
+              f"{out[('train_window_batch', shape)]['fired']}", flush=True)
+        if shape == "train-parallel":
+            continue
+        # the read-only windows: one stream, SU idle
+        w1, v1, t1, l1 = (o[k][0] for k in ("weights", "v", "teach",
+                                            "lfsr"))
+        ro = dict(kw, ltp_prob=0, train=False)
+        ro_calls = {
+            "fused_snn_window": (
+                lambda be: ops.fused_snn_window(w1, o["wins"][0], v1, l1, t1,
+                                                backend=be, **ro)[1:3],
+                "window_infer_kernel", False),
+            "fused_snn_window_encode": (
+                lambda be: ops.fused_snn_window_encode(
+                    w1, o["inten"][0], o["seeds"][:1], v1, l1, t1,
+                    n_steps=t, backend=be, **ro)[1:3],
+                "window_infer_enc_kernel", True),
+        }
+        for kname, (call, symbol, encode) in ro_calls.items():
+            timing, _ = hold_and_time(
+                kname, f"{shape} (B=1, n_in={n_in}, n={n}, T={t})", call,
+                symbol, reps, plain_reps,
+                lambda g, encode=encode: train_bound(
+                    rates, b=1, n=n, words=words, n_in=n_in, t_steps=t,
+                    fired=0, learn=False, encode=encode))
+            out[(kname, shape)] = timing
     return out
 
 
@@ -371,6 +567,154 @@ def phase_trace(eng, n_req: int = 512) -> None:
         f"{name} {tt} ({ct})" for tt, ct, name in funcs[:16]), flush=True)
 
 
+TRAIN_KERNELS = ("train_window_batch", "train_window_batch_encode",
+                 "fused_snn_window", "fused_snn_window_encode")
+
+
+def train_runs(device, x, labels, tx, tlabels, n_host: int) -> dict:
+    """The training slice on ``device``: one epoch of 784-40, T = 72 in
+    each train mode (intensity-resident, in-kernel encode), a short
+    host-encode run, and a read-only pass of block 0 over the test set.
+    Returns each run's model, wall time and test accuracy, and the
+    read-only counts."""
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A_INTENSITY
+    from repro_torch.core.encoder import quantize_intensities, sample_seeds
+    from repro_torch.core.rvsnn import snn_regfile
+    from repro_torch.core.trainer import accuracy, train
+    from repro_torch.engine import SNNEngine, train_stream
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(WENQUXING_22A_INTENSITY, epochs=1)
+    tinten = quantize_intensities(tx).to(device)
+    tseeds = sample_seeds(0x7E57, len(tx), device=device)
+    runs = {}
+    for name, c, n in (
+            ("parallel", dataclasses.replace(cfg, train_mode="parallel"),
+             len(x)),
+            ("active", cfg, len(x)),
+            ("host", dataclasses.replace(cfg, encode="host"), n_host)):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        model = train(c, x[:n], labels[:n], device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # one train-kernel launch per presented sample (a parallel launch
+        # presents the sample to every block at once)
+        presented = sum(ops.launch_counts()[k] - before[k]
+                        for k in TRAIN_KERNELS[:2])
+        acc = (accuracy(model, labels=tlabels, intensities=tinten,
+                        seeds=tseeds) if c.encode == "kernel" else None)
+        runs[name] = dict(model=model, wall=wall, acc=acc, n=n,
+                          presented=presented)
+    # read-only pass: block 0 of the parallel model, SU idle, no teacher;
+    # its window counts must equal the infer verb's
+    model = runs["parallel"]["model"]
+    plan = dataclasses.replace(model.cfg.plan(), w_exp=None)
+    block0 = model.weights[:cfg.n_classes]
+    counts = {}
+    for encode in ("kernel", "host"):
+        eng = SNNEngine(dataclasses.replace(plan, encode=encode),
+                        device=device)
+        _, counts[encode] = train_stream(eng, snn_regfile(block0),
+                                         intensities=tinten, seeds=tseeds,
+                                         n_steps=cfg.n_steps)
+    counts["infer"] = SNNEngine(plan, device=device).infer(
+        block0, intensities=tinten, seeds=tseeds, n_steps=cfg.n_steps)
+    runs["read-only"] = counts
+    return runs
+
+
+def phase_train():
+    """Phase 6: the training slice on the card, then on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    n_train, n_test, n_host = 256, 200, 32
+    x, labels = preprocessed_digits(n_train, seed=1)
+    tx, tlabels = preprocessed_digits(n_test, seed=2)
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    card = train_runs(dev, x, labels, tx, tlabels, n_host)
+    launches = ops.launch_counts()
+    for k in TRAIN_KERNELS + ("infer_window_batch_encode",
+                              "infer_window_batch"):
+        if not launches[k]:
+            fail(f"the training slice never launched {k}: {launches}")
+    ro = card["read-only"]
+    if not (torch.equal(ro["kernel"], ro["infer"])
+            and torch.equal(ro["host"], ro["infer"])):
+        fail("read-only windows disagree with the infer verb's counts")
+
+    t0 = time.perf_counter()
+    host = train_runs(torch.device("cpu"), x, labels, tx, tlabels, n_host)
+    cpu_s = time.perf_counter() - t0
+    for name in ("parallel", "active", "host"):
+        a, b = card[name]["model"], host[name]["model"]
+        if not (torch.equal(a.weights.cpu(), b.weights)
+                and torch.equal(a.neuron_class.cpu(), b.neuron_class)):
+            fail(f"{name} training on the card differs from the CPU "
+                 f"plain run")
+        if card[name]["acc"] != host[name]["acc"]:
+            fail(f"{name} test accuracy differs: {card[name]['acc']} on "
+                 f"the card, {host[name]['acc']} on the CPU")
+    for k in ("kernel", "host", "infer"):
+        if not torch.equal(ro[k].cpu(), host["read-only"][k]):
+            fail(f"read-only pass ({k}) differs from the CPU plain run")
+
+    for name in ("parallel", "active", "host"):
+        r = card[name]
+        blocks = r["model"].weights.shape[0] // 10
+        print(f"train {name}: {r['n']} samples x 1 epoch in {r['wall']} s "
+              f"= {r['n'] / r['wall']} samples/s; {r['presented']} "
+              f"presentations = {r['presented'] / r['wall']} per s, "
+              f"{1e3 * r['wall'] / r['presented']} ms each; {blocks} "
+              f"blocks; test accuracy {r['acc']} (CPU plain run "
+              f"{host[name]['wall']} s)", flush=True)
+    print(f"train: launches {launches}; CPU plain runs {cpu_s} s; "
+          f"read-only spikes {int(ro['infer'].sum())}; equal to the CPU "
+          f"plain runs: weights, class maps, accuracy, read-only counts",
+          flush=True)
+    return launches, card
+
+
+def phase_train_trace(x, labels) -> None:
+    """Where a training run's time goes: one parallel-mode epoch of
+    ``x`` under ``torch.profiler`` (card busy share of the wall time,
+    kernel time by name, the host's heaviest operations), then the
+    per-presentation time split."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A_INTENSITY
+    from repro_torch.core.trainer import train
+
+    cfg = dataclasses.replace(WENQUXING_22A_INTENSITY, epochs=1,
+                              train_mode="parallel")
+    dev = torch.device("cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(cfg, x, labels, device=dev)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = prof.key_averages()
+    devs = [e for e in rows if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in devs)
+    print(f"train trace (torch.profiler, parallel, {len(x)} samples): "
+          f"wall {wall_us} us, card busy {dev_us} us = "
+          f"{dev_us / wall_us if wall_us else 0} of the wall time; device "
+          f"work: " + "; ".join(
+              f"{e.key} {e.count}x {e.self_device_time_total} us"
+              for e in sorted(devs, key=lambda e:
+                              -e.self_device_time_total)[:6]), flush=True)
+    host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    print("train trace: host heaviest: " + "; ".join(
+        f"{e.key} {e.count}x {e.self_cpu_time_total} us"
+        for e in host[:8]), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -386,15 +730,16 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # phase 2: build
+    # phase 2: build (one nvcc per source, all at once)
     t0 = time.perf_counter()
     ops.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    log = build.library_path("snn_infer").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas: {line.strip()}", flush=True)
+    for source in ("snn_infer", "snn_train"):
+        log = build.library_path(source).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {source}: {line.strip()}", flush=True)
 
     # phase 3: kernels against their plain versions
     rates = Rates.of_card()
@@ -402,21 +747,36 @@ def main() -> None:
           f"{rates.popc_per_s:.4g}/s, hbm {HBM_BYTES_PER_S:.4g} B/s",
           flush=True)
     timings = phase_kernels(rates)
+    timings.update(phase_train_kernels(rates))
 
-    # phase 4: the slice
-    launches, eng = phase_slice()
+    # phase 4: the serving slice
+    serve_launches, eng = phase_slice()
 
     # phase 5: where a serving step's time goes
     phase_trace(eng)
 
+    # phase 6: the training slice, and where its time goes
+    train_launches, _ = phase_train()
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+    phase_train_trace(*preprocessed_digits(64, seed=3))
+
     kernels = []
-    for kname, shape, line in (
-            ("infer_window_batch_encode", "paper", 842),
-            ("infer_window_batch", "canary", 580)):
+    for kname, source, shape, line, launches in (
+            ("infer_window_batch_encode", SOURCE, "paper", 842,
+             serve_launches),
+            ("infer_window_batch", SOURCE, "canary", 580, serve_launches),
+            ("train_window_batch", TRAIN_SOURCE, "train-parallel", 410,
+             train_launches),
+            ("train_window_batch_encode", TRAIN_SOURCE, "train-parallel",
+             747, train_launches),
+            ("fused_snn_window", TRAIN_SOURCE, "train-active", 497,
+             train_launches),
+            ("fused_snn_window_encode", TRAIN_SOURCE, "train-active", 793,
+             train_launches)):
         main_t, large = timings[(kname, shape)], timings[(kname, "large")]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": f"src/repro/kernels/snn_kernels.py:{line}",
+        entry = {
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": f"{PALLAS}:{line}",
             "launches": launches[kname],
             "max_abs_err": max(main_t["max_abs_err"], large["max_abs_err"]),
             "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
@@ -424,7 +784,15 @@ def main() -> None:
             "library_ms": None, "shape": shape,
             "call_ms": main_t["call_ms"],
             "large": {k: large[k] for k in ("ms", "call_ms", "plain_ms",
-                                            "bound_ms", "bound_by")}})
+                                            "bound_ms", "bound_by")}}
+        if (kname, "train-active") in timings and shape != "train-active":
+            entry["train-active"] = {
+                k: timings[(kname, "train-active")][k]
+                for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                          "bound_by")}
+        if launches is serve_launches:
+            entry["train_launches"] = train_launches[kname]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

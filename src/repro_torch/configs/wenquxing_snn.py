@@ -1,47 +1,18 @@
 """The paper's own configuration: Wenquxing 22A MNIST SNN (784-{10,20,40}).
 
 Table 1's "this work" row: 784 inputs, 1-bit synapses, binary stochastic
-STDP, rate-Poisson encoding, {10, 20, 40} LIF neurons.  Only the fields
-that the engine plan and serving read are here; the training fields
-come with the training slice.
+STDP, rate-Poisson encoding, {10, 20, 40} LIF neurons.  The config class
+is :class:`~repro_torch.core.trainer.SNNTrainConfig`, re-exported here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
 
-from repro_torch.core.bitpack import n_words
+from repro_torch.core.trainer import SNNTrainConfig
 
-
-@dataclass(frozen=True)
-class SNNTrainConfig:
-    n_inputs: int = 784
-    n_classes: int = 10
-    n_neurons: int = 40          # total population (multiple of n_classes)
-    n_steps: int = 72            # presentation window T (cycles/sample)
-    threshold: int = 192         # streamlined-LIF firing threshold
-    leak: int = 16               # per-cycle leak
-    w_exp: int = 128             # paper meta-parameter {128, 256, 512}
-    gain: int = 4                # homeostatic LTD slope
-    ltp_prob: int = 16           # 10-bit stochastic-LTP prob (base block)
-    ltp_prob_active: int = 1023  # faster LTP for active-learning blocks
-    kernel_backend: str = "kernel"   # "kernel" | "ref"
-    window_chunk: int | None = None  # window-length quantum (None = 8)
-    encode: str = "host"             # "host" | "kernel" (in-kernel draw)
-    encode_seed: int = 0             # counter base for the draw
-
-    @property
-    def n_blocks(self) -> int:
-        if self.n_neurons % self.n_classes:
-            raise ValueError(f"n_neurons={self.n_neurons} is not a "
-                             f"multiple of n_classes={self.n_classes}")
-        return self.n_neurons // self.n_classes
-
-    @property
-    def words(self) -> int:
-        return n_words(self.n_inputs)
-
+__all__ = ["SNNTrainConfig", "VARIANTS", "WENQUXING_22A",
+           "WENQUXING_22A_INTENSITY"]
 
 WENQUXING_22A = SNNTrainConfig(
     n_inputs=784,
@@ -54,9 +25,18 @@ WENQUXING_22A = SNNTrainConfig(
     gain=4,
     ltp_prob=16,
     ltp_prob_active=1023,
+    teach_pos=64,
+    teach_neg=-1024,
+    epochs=2,
 )
 
 VARIANTS = {
     n: dataclasses.replace(WENQUXING_22A, n_neurons=n)
     for n in (10, 20, 40)
 }
+
+# Intensity-resident ingestion: the dataset stays uint8[N, 784] and the
+# window kernels draw each cycle's spikes from per-sample counter-hash
+# seeds, so no N x T x w spike tensor exists.
+WENQUXING_22A_INTENSITY = dataclasses.replace(
+    WENQUXING_22A, encode="kernel", encode_seed=0x22A)

@@ -1,11 +1,21 @@
-"""Deterministic counter encoder (paper §3.1, rate coding).
+"""Rate-based spike encoders (paper §3.1, rate coding).
 
 Each pixel fires as an independent Bernoulli(intensity) per time cycle.
-A spike at (cycle t, input i) fires iff
-``counter_hash(seed, t, i) & 0xFF < intensity``, i.e. P = intensity/256;
-intensity 0 is silent by construction (serving's batch padding relies on
-it).  These functions are the host versions of the draw that the encode
-kernel makes on the card, and are bit-exact with it.
+The encoders output packed int32 spike words (the SPU's operand).
+
+``poisson_encode``
+    Statistical encode from float intensities in [0, 1] with a
+    ``torch.Generator``.  Its bits are not the JAX package's (the two
+    PRNGs differ), only their distribution; the trainer's
+    ``encode="host"`` path uses it.
+
+``encode_from_counter``
+    Deterministic: a spike at (cycle t, input i) fires iff
+    ``counter_hash(seed, t, i) & 0xFF < intensity``, i.e. P =
+    intensity/256; intensity 0 is silent by construction (serving's
+    batch padding relies on it).  The host version of the draw that the
+    encode kernels make on the card, bit-exact with them and with the
+    JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +23,39 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import lfsr
-from repro_torch.core.bitpack import as_i32, pack
+from repro_torch.core.bitpack import as_i32, pack, popcount, unpack
+
+
+def poisson_encode(generator: torch.Generator | None,
+                   intensities: torch.Tensor, n_steps: int
+                   ) -> torch.Tensor:
+    """Float intensities [n] in [0, 1] -> packed spikes int32[T, w]."""
+    return poisson_encode_batch(generator, intensities[None], n_steps)[0]
+
+
+def poisson_encode_batch(generator: torch.Generator | None,
+                         batch: torch.Tensor, n_steps: int
+                         ) -> torch.Tensor:
+    """[B, n] float intensities -> int32[B, T, w] packed spike trains,
+    one uniform draw per (sample, cycle, input) from ``generator`` (on
+    the generator's device; None: PyTorch's default generator)."""
+    x = torch.as_tensor(batch, dtype=torch.float32)
+    dev = generator.device if generator is not None else x.device
+    u = torch.rand((x.shape[0], n_steps, x.shape[1]), generator=generator,
+                   device=dev)
+    return pack(u < x.to(dev)[:, None, :])
+
+
+def spike_rate(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Population firing rate per time cycle: packed int32[T, w] ->
+    float32[T], the fraction of the ``n`` inputs spiking each cycle (tail
+    bits past ``n`` are zero by the packing convention)."""
+    return popcount(packed).to(torch.float32) / n
+
+
+def spike_rate_per_input(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Mean firing rate per input across time: float32[n]."""
+    return unpack(packed, n).to(torch.float32).mean(dim=0)
 
 
 def quantize_intensities(x) -> torch.Tensor:

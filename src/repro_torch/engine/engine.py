@@ -1,9 +1,22 @@
-"""The SNN engine: the ``infer`` verb over one execution plan.
+"""The SNN engine: three verbs over one execution plan.
 
-``infer(weights, windows)`` gives spike counts i32[B, n] for B
-presentation windows, weights frozen, membrane reset per sample: the
-serving path.  One kernel launch per call.  The ``train`` verbs come
-with the training slice.
+``infer(weights, windows)``
+    Spike counts i32[B, n] for B presentation windows, weights frozen,
+    membrane reset per sample: the serving path.  One kernel launch.
+
+``train(rf, window, teach)``
+    Present one window to one register file with online STDP (SU idle
+    for inference-only plans).  One window-kernel launch.
+
+``train_batch(rfs, windows, teach)``
+    B independent training streams in one launch, with an optional
+    per-stream ``ltp_prob``.
+
+The module-level :func:`train_stream` / :func:`train_stream_batch`
+compose the verbs over a stream of samples (membrane reset between
+samples), one launch per presented sample, with the register file kept
+on the device across the loop; :func:`refresh_weights` runs one such
+pass over a serving-shaped bank.
 
 The engine places its inputs on its device.  On a CUDA device with
 ``kernel_backend="kernel"`` the kernels are built when the engine is
@@ -12,10 +25,14 @@ constructed, so a build failure raises there and not inside a launch.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.bitpack import as_words
-from repro_torch.core.encoder import encode_windows_host
+from repro_torch.core.encoder import (encode_from_counter_batch,
+                                      encode_windows_host)
+from repro_torch.core.rvsnn import SnnRegFile, snn_regfile_batch
 from repro_torch.engine.plan import SNNEnginePlan
 from repro_torch.kernels import ops
 
@@ -30,6 +47,38 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class SNNOutput(NamedTuple):
+    """One presented window: updated regfile + spike statistics."""
+    regfile: SnnRegFile
+    spike_counts: torch.Tensor  # int32[n] output spikes over the window
+    fired: torch.Tensor         # bool[T, n] raster
+
+
+def reset_between_samples(rf: SnnRegFile) -> SnnRegFile:
+    """Clear the membrane and spike registers, keep weights and LFSR
+    (the paper resets neuron state between digit presentations)."""
+    return rf._replace(v=torch.zeros_like(rf.v),
+                       spike=torch.zeros_like(rf.spike))
+
+
+def _teach_arr(teach, v: torch.Tensor) -> torch.Tensor:
+    return (torch.zeros_like(v) if teach is None
+            else torch.as_tensor(teach, dtype=torch.int32, device=v.device))
+
+
+def _last_cycle_spikes(seeds, intensities: torch.Tensor, n_steps: int,
+                       words: int) -> torch.Tensor:
+    """Packed words of the window's final cycle (the spike register
+    after a presentation), regenerated in isolation from the counter.
+    intensities uint8[n_in] (one seed) or [B, n_in] (one seed each)."""
+    x = intensities if intensities.ndim == 2 else intensities[None]
+    rows = encode_from_counter_batch(seeds, x, 1, t0=n_steps - 1)[:, 0]
+    pad = words - rows.shape[-1]
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, pad))
+    return rows if intensities.ndim == 2 else rows[0]
+
+
 def _one_of(windows, intensities, n_steps, what: str) -> None:
     if (windows is None) == (intensities is None):
         raise ValueError(f"{what}: pass exactly one of the packed "
@@ -39,13 +88,14 @@ def _one_of(windows, intensities, n_steps, what: str) -> None:
 
 
 class SNNEngine:
-    """Dispatches the ``infer`` verb according to one frozen plan."""
+    """Dispatches the three verbs according to one frozen plan."""
 
     def __init__(self, plan: SNNEnginePlan, device=None):
         self.plan = plan
         self.device = resolve_device(device)
         if self.device.type == "cuda" and plan.kernel_backend == "kernel":
             ops.load_kernels()
+        self._ltp = None     # the plan's ltp_prob, int32[1] on the device
 
     def __repr__(self) -> str:
         return f"SNNEngine({self.plan!r}, device={self.device})"
@@ -58,6 +108,15 @@ class SNNEngine:
         if seeds is None:
             seeds = self.plan.encode_seed + torch.arange(b)
         return ops.seed_vector(seeds, b, device)
+
+    def _place(self, rf: SnnRegFile) -> SnnRegFile:
+        """A register file on the engine's device (words as int32 bit
+        patterns; numpy uint32 is accepted)."""
+        return SnnRegFile(
+            spike=as_words(rf.spike, self.device),
+            v=torch.as_tensor(rf.v, dtype=torch.int32, device=self.device),
+            lfsr=as_words(rf.lfsr, self.device),
+            weights=as_words(rf.weights, self.device))
 
     # --- infer -----------------------------------------------------------
 
@@ -90,3 +149,299 @@ class SNNEngine:
             w, as_words(windows, self.device),
             threshold=p.threshold, leak=p.leak, t_chunk=p.t_chunk,
             backend=p.kernel_backend)
+
+    # --- train -----------------------------------------------------------
+
+    def _window(self, rf: SnnRegFile, teach: torch.Tensor, *, window=None,
+                intensities=None, seed=None, n_steps=None):
+        """One stream's window on the plan's path, operands on the
+        device (``seed`` int32[1]): (weights', v', fired, lfsr')."""
+        p = self.plan
+        kw = dict(p.window_kwargs(), t_chunk=p.t_chunk,
+                  backend=p.kernel_backend)
+        if p.learn:
+            if self._ltp is None:
+                self._ltp = ops.seed_vector(p.ltp_prob, 1, self.device)
+            kw["ltp_prob"] = self._ltp
+        if window is None and p.encode == "kernel":
+            return ops.fused_snn_window_encode(
+                rf.weights, intensities, seed, rf.v, rf.lfsr, teach,
+                n_steps=n_steps, **kw)
+        if window is None:
+            window = encode_windows_host(seed, intensities[None], n_steps,
+                                         rf.weights.shape[1])[0]
+        return ops.fused_snn_window(rf.weights, window, rf.v, rf.lfsr,
+                                    teach, **kw)
+
+    def train(self, rf: SnnRegFile, window=None, teach=None, *,
+              intensities=None, seed=None, n_steps: int | None = None
+              ) -> SNNOutput:
+        """Present one window to one regfile.
+
+        Pass EITHER a packed ``window`` u32[T, w] OR uint8
+        ``intensities`` [n_in] with ``n_steps`` (+ optional counter
+        ``seed``; default: the plan's).  Online STDP when the plan
+        learns (``w_exp`` set); SU idle otherwise.  Returns
+        :class:`SNNOutput`; the input register file is not written.
+        """
+        p = self.plan
+        rf = self._place(rf)
+        teach = _teach_arr(teach, rf.v)
+        words = rf.weights.shape[1]
+        if intensities is not None or window is None:
+            _one_of(window, intensities, n_steps, "train")
+            x = torch.as_tensor(intensities, dtype=torch.uint8,
+                                device=self.device)
+            sd = ops.seed_vector(p.encode_seed if seed is None else seed,
+                                 1, self.device)
+            w2, v2, fired, lf2 = self._window(rf, teach, intensities=x,
+                                              seed=sd, n_steps=n_steps)
+            spike = _last_cycle_spikes(sd, x, n_steps, words)
+        else:
+            window = as_words(window, self.device)
+            w2, v2, fired, lf2 = self._window(rf, teach, window=window)
+            spike = window[-1]
+        rf_out = rf._replace(weights=w2, v=v2, lfsr=lf2, spike=spike)
+        return SNNOutput(rf_out, fired.sum(dim=0, dtype=torch.int32), fired)
+
+    # --- train_batch -----------------------------------------------------
+
+    def _window_batch(self, rfs: SnnRegFile, teach: torch.Tensor,
+                      ltp_prob, *, windows=None, intensities=None,
+                      seeds=None, n_steps=None):
+        """B streams' windows in one launch, operands on the device:
+        (weights', v', fired, lfsr')."""
+        p = self.plan
+        kw = {k: v for k, v in p.window_kwargs().items()
+              if k not in ("train", "ltp_prob")}
+        kw.update(ltp_prob=ltp_prob, t_chunk=p.t_chunk,
+                  backend=p.kernel_backend)
+        if windows is None and p.encode == "kernel":
+            return ops.train_window_batch_encode(
+                rfs.weights, intensities, seeds, rfs.v, rfs.lfsr, teach,
+                n_steps=n_steps, **kw)
+        if windows is None:
+            windows = encode_windows_host(seeds, intensities, n_steps,
+                                          rfs.weights.shape[2])
+        return ops.train_window_batch(rfs.weights, windows, rfs.v,
+                                      rfs.lfsr, teach, **kw)
+
+    def _stream_ltp(self, ltp_prob, b: int) -> torch.Tensor:
+        """Per-stream ``ltp_prob`` int32[b] on the device (default: the
+        plan's, for every stream)."""
+        lp = self.plan.ltp_prob if ltp_prob is None else ltp_prob
+        return ops.seed_vector(lp, b, self.device)
+
+    def train_batch(self, rfs: SnnRegFile, windows=None, teach=None, *,
+                    ltp_prob=None, intensities=None, seeds=None,
+                    n_steps: int | None = None
+                    ) -> tuple[SnnRegFile, torch.Tensor, torch.Tensor]:
+        """B independent streams, one launch: a batched regfile (leading
+        stream axis), windows u32[B, T, w] OR intensities uint8
+        [B, n_in] + ``n_steps`` (+ per-stream counter ``seeds`` i32[B]),
+        teach i32[B, n].
+
+        ``ltp_prob`` overrides the plan's shared value with a per-stream
+        i32[B] vector.  Returns (rfs', spike_counts i32[B, n], fired
+        bool[B, T, n]); stream b is bit-exact with a :meth:`train` call
+        on regfile b.
+        """
+        p = self.plan
+        if not p.learn:
+            raise ValueError("train_batch needs a learning plan "
+                             "(w_exp is None)")
+        rfs = self._place(rfs)
+        lp = self._stream_ltp(ltp_prob, rfs.v.shape[0])
+        teach = _teach_arr(teach, rfs.v)
+        words = rfs.weights.shape[2]
+        if intensities is not None or windows is None:
+            _one_of(windows, intensities, n_steps, "train_batch")
+            x = torch.as_tensor(intensities, dtype=torch.uint8,
+                                device=self.device)
+            sd = self._seeds(seeds, x.shape[0], self.device)
+            w2, v2, fired, lf2 = self._window_batch(
+                rfs, teach, lp, intensities=x, seeds=sd, n_steps=n_steps)
+            spike = _last_cycle_spikes(sd, x, n_steps, words)
+        else:
+            windows = as_words(windows, self.device)
+            w2, v2, fired, lf2 = self._window_batch(rfs, teach, lp,
+                                                    windows=windows)
+            spike = windows[:, -1]
+        rfs_out = rfs._replace(weights=w2, v=v2, lfsr=lf2, spike=spike)
+        return rfs_out, fired.sum(dim=1, dtype=torch.int32), fired
+
+
+# --- stream drivers (compose the verbs over the sample axis) ---------------
+
+def _counts(rasters: list[torch.Tensor], shape, device) -> torch.Tensor:
+    """Per-sample spike counts from per-sample rasters [..., T, n],
+    stacked on a new leading sample axis, in one reduction."""
+    if not rasters:
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    return torch.stack(rasters).sum(dim=-2, dtype=torch.int32)
+
+
+def train_stream(engine: SNNEngine, rf: SnnRegFile, spike_trains=None,
+                 teach=None, *, intensities=None, seeds=None,
+                 n_steps: int | None = None
+                 ) -> tuple[SnnRegFile, torch.Tensor]:
+    """Online STDP over a stream of samples (sequential, as in hardware).
+
+    Pass EITHER pre-packed ``spike_trains`` u32[N, T, w] OR uint8
+    ``intensities`` [N, n_in] with ``n_steps`` and per-sample counter
+    ``seeds`` i32[N] (default: the engine's seed chain); teach
+    i32[N, n].  Neuron state resets between presentations; weights and
+    LFSR persist.  One window launch per sample, with the regfile kept
+    on the engine's device; the spike register of the result is the
+    last presentation's.  Returns (rf', spike_counts i32[N, n]).
+    """
+    _one_of(spike_trains, intensities, n_steps, "train_stream")
+    dev = engine.device
+    rf = engine._place(rf)
+    n, words = rf.weights.shape
+    if intensities is not None:
+        samples = torch.as_tensor(intensities, dtype=torch.uint8,
+                                  device=dev)
+        sd = engine._seeds(seeds, samples.shape[0], dev)
+    else:
+        samples = as_words(spike_trains, dev)
+    n_samples = samples.shape[0]
+    teach = (torch.zeros((n_samples, n), dtype=torch.int32, device=dev)
+             if teach is None else
+             torch.as_tensor(teach, dtype=torch.int32, device=dev))
+    v0 = torch.zeros_like(rf.v)        # read, never written, by launches
+    rasters = []
+    for i in range(n_samples):
+        cur = rf._replace(v=v0)
+        if intensities is not None:
+            out = engine._window(cur, teach[i], intensities=samples[i],
+                                 seed=sd[i:i + 1], n_steps=n_steps)
+        else:
+            out = engine._window(cur, teach[i], window=samples[i])
+        w2, v2, fired, lf2 = out
+        rf = rf._replace(weights=w2, v=v2, lfsr=lf2)
+        rasters.append(fired)
+    if n_samples:
+        spike = (_last_cycle_spikes(sd[-1:], samples[-1], n_steps, words)
+                 if intensities is not None else samples[-1, -1])
+        rf = rf._replace(spike=spike)
+    return rf, _counts(rasters, (0, n), dev)
+
+
+def train_stream_batch(engine: SNNEngine, rfs: SnnRegFile,
+                       spike_trains=None, teach=None, *, ltp_prob=None,
+                       intensities=None, seeds=None,
+                       n_steps: int | None = None
+                       ) -> tuple[SnnRegFile, torch.Tensor]:
+    """B independent sample streams, one :meth:`SNNEngine.train_batch`
+    launch per presented sample.
+
+    Pass EITHER ``spike_trains`` u32[B, N, T, w] OR uint8
+    ``intensities`` [B, N, n_in] with ``n_steps`` and per-sample
+    ``seeds`` i32[N] (shared by every stream) or i32[B, N]; teach
+    i32[B, N, n].  ``ltp_prob`` optionally carries a per-stream i32[B]
+    schedule through every launch.  Returns (rfs', spike_counts
+    i32[B, N, n]).
+    """
+    _one_of(spike_trains, intensities, n_steps, "train_stream_batch")
+    p = engine.plan
+    if not p.learn:
+        raise ValueError("train_stream_batch needs a learning plan "
+                         "(w_exp is None)")
+    dev = engine.device
+    rfs = engine._place(rfs)
+    b, n, words = rfs.weights.shape
+    lp = engine._stream_ltp(ltp_prob, b)
+    # sample-major copies, so each launch reads contiguous [B, ...] slabs
+    if intensities is not None:
+        x = torch.as_tensor(intensities, dtype=torch.uint8, device=dev)
+        n_samples = x.shape[1]
+        samples = x.transpose(0, 1).contiguous()
+        sd = torch.as_tensor(engine._seeds(None, n_samples, dev)
+                             if seeds is None else seeds)
+        sd = ops.seed_vector(sd.expand(b, n_samples).reshape(-1),
+                             b * n_samples, dev)
+        sd = sd.reshape(b, n_samples).transpose(0, 1).contiguous()
+    else:
+        trains = as_words(spike_trains, dev)
+        n_samples = trains.shape[1]
+        samples = trains.transpose(0, 1).contiguous()
+    teach_t = (torch.zeros((n_samples, b, n), dtype=torch.int32, device=dev)
+               if teach is None else
+               torch.as_tensor(teach, dtype=torch.int32, device=dev)
+               .transpose(0, 1).contiguous())
+    v0 = torch.zeros_like(rfs.v)
+    rasters = []
+    for i in range(n_samples):
+        cur = rfs._replace(v=v0)
+        if intensities is not None:
+            out = engine._window_batch(cur, teach_t[i], lp,
+                                       intensities=samples[i], seeds=sd[i],
+                                       n_steps=n_steps)
+        else:
+            out = engine._window_batch(cur, teach_t[i], lp,
+                                       windows=samples[i])
+        w2, v2, fired, lf2 = out
+        rfs = rfs._replace(weights=w2, v=v2, lfsr=lf2)
+        rasters.append(fired)
+    if n_samples:
+        spike = (_last_cycle_spikes(sd[-1], samples[-1], n_steps, words)
+                 if intensities is not None else samples[-1][:, -1])
+        rfs = rfs._replace(spike=spike)
+    return rfs, _counts(rasters, (0, b, n), dev).transpose(0, 1)
+
+
+def refresh_weights(engine: SNNEngine, weights, *, labels, n_classes: int,
+                    teach_pos: int = 64, teach_neg: int = -1024,
+                    intensities=None, seeds=None, n_steps: int | None = None,
+                    spike_trains=None, lfsr_seeds=None,
+                    ltp_prob=None) -> torch.Tensor:
+    """One online-STDP refresh pass over a packed population bank: the
+    train-while-serving verb.
+
+    ``weights`` is a serving-shaped u32[n, w] bank whose n = blocks x
+    ``n_classes`` rows follow the trainer's block layout (neuron i's
+    class is ``i % n_classes``).  The bank is reshaped into per-block
+    regfiles, every labeled sample is one :meth:`SNNEngine.train_batch`
+    launch across all blocks, and the result is reshaped back.  Samples
+    are uint8 ``intensities`` [N, n_in] + counter ``seeds`` i32[N] with
+    ``n_steps``, OR pre-packed ``spike_trains`` u32[N, T, w].
+    ``teach_pos``/``teach_neg`` build the supervision currents from
+    ``labels`` as the trainer does; ``lfsr_seeds`` (one per block,
+    default a fixed decorrelated chain) key the STDP lanes; ``ltp_prob``
+    optionally carries a per-block schedule.  Returns a new bank
+    int32[n, w] on the engine's device; the input bank is never written.
+    """
+    if not engine.plan.learn:
+        raise ValueError("refresh_weights needs a learning plan "
+                         "(w_exp is None)")
+    bank = as_words(weights, engine.device)
+    n, w = bank.shape
+    if n % n_classes:
+        raise ValueError(f"weight bank rows ({n}) must be a multiple "
+                         f"of n_classes ({n_classes})")
+    b = n // n_classes
+    if lfsr_seeds is None:
+        # a fixed decorrelated per-block chain (the 0x9E37 Weyl step
+        # lfsr.seed uses); refresh determinism comes from the caller's
+        # epoch-keyed sample seeds, not from these bases
+        lfsr_seeds = [(0x22A + 0x9E37 * i) & 0xFFFF or 0xACE1
+                      for i in range(b)]
+    rfs = snn_regfile_batch(bank.reshape(b, n_classes, w), lfsr_seeds)
+    labels = torch.as_tensor(labels, dtype=torch.int64, device=engine.device)
+    onehot = torch.nn.functional.one_hot(labels, n_classes).to(torch.int32)
+    teach = onehot * teach_pos + (1 - onehot) * teach_neg
+    teach_b = teach.expand((b,) + teach.shape)
+    if intensities is not None:
+        x = torch.as_tensor(intensities, dtype=torch.uint8,
+                            device=engine.device)
+        rfs, _ = train_stream_batch(engine, rfs, teach=teach_b,
+                                    ltp_prob=ltp_prob,
+                                    intensities=x.expand((b,) + x.shape),
+                                    seeds=seeds, n_steps=n_steps)
+    else:
+        trains = as_words(spike_trains, engine.device)
+        rfs, _ = train_stream_batch(engine, rfs,
+                                    trains.expand((b,) + trains.shape),
+                                    teach_b, ltp_prob=ltp_prob)
+    return rfs.weights.reshape(n, w)

@@ -3,12 +3,17 @@
 An :class:`SNNEnginePlan` holds every decision the engine dispatches
 on: LIF/STDP parameters, the kernel backend, where the Poisson encode
 runs, and the serving batch size.  Plans are frozen dataclasses of
-plain Python scalars.
+plain Python scalars; the kernels take them as plain ``int``
+arguments, while per-stream operands (seeds, ``ltp_prob``, teach) are
+tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.core.lif import LIFParams, lif_params
+from repro_torch.core.stdp import STDPParams, stdp_params
 
 _KERNEL_BACKENDS = ("kernel", "ref")
 _ENCODE_BACKENDS = ("host", "kernel")
@@ -56,6 +61,34 @@ class SNNEnginePlan:
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got "
                              f"{self.max_batch}")
+
+    # --- derived views ---------------------------------------------------
+
+    @property
+    def learn(self) -> bool:
+        """Whether the train verb runs the SU (STDP) at all."""
+        return self.w_exp is not None
+
+    def lif(self) -> LIFParams:
+        return lif_params(self.threshold, self.leak)
+
+    def stdp(self) -> STDPParams | None:
+        if not self.learn:
+            return None
+        return stdp_params(self.n_syn, self.w_exp, self.gain,
+                           self.ltp_prob)
+
+    def window_kwargs(self) -> dict:
+        """The window ops' parameters (``ops.fused_snn_window``
+        signature); inference-only plans hand the SU zeroed values and
+        ``train=False``."""
+        if not self.learn:
+            return dict(threshold=self.threshold, leak=self.leak,
+                        w_exp=0, gain=0, n_syn=1, ltp_prob=0,
+                        train=False)
+        return dict(threshold=self.threshold, leak=self.leak,
+                    w_exp=self.w_exp, gain=self.gain, n_syn=self.n_syn,
+                    ltp_prob=self.ltp_prob, train=True)
 
 
 def plan_from_config(cfg, block_idx: int = 0) -> SNNEnginePlan:

@@ -1,16 +1,17 @@
-"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+"""Build the CUDA sources under ``csrc/`` with ``nvcc``.
 
 Each source is compiled on first use into a shared library with a plain
 C interface, ``build/kernels/<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags, and loaded with
-``ctypes``.  Nothing here runs at import time.  The compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library as ``<name>-<hash>.log``.
+checkout, keyed by a hash of the source, every header under ``csrc/``
+and the flags, for the caller to load with ``ctypes``.  Nothing here
+runs at import time.  :func:`build_all` starts one ``nvcc`` per source,
+all at once.
+The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+is kept beside the library as ``<name>-<hash>.log``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
@@ -39,41 +40,56 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists.
+def build_all(names) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` whose library does not exist yet,
+    one ``nvcc`` process per source, all started together.
 
-    The library is written to a temporary name and renamed into place,
+    Each library is written to a temporary name and renamed into place,
     so concurrent builds never load a half-written file.  Raises
-    ``RuntimeError`` with the compiler's output if ``nvcc`` fails.
+    ``RuntimeError`` with the compiler's output if an ``nvcc`` fails
+    (after every started compiler has ended).
     """
-    out = library_path(name)
-    if out.exists():
-        return out
+    outs = {name: library_path(name) for name in names}
+    todo = [name for name, out in outs.items() if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = {}
     try:
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu "
-                               f"(exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu (exit "
+                              f"{proc.returncode}):\n{log}")
+                continue
+            outs[name].with_suffix(".log").write_text(log)
+            os.replace(tmp, outs[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for tmp, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return outs
 
-
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))

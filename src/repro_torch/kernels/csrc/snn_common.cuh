@@ -1,0 +1,131 @@
+// Device code shared by the SNN window kernels (snn_infer.cu,
+// snn_train.cu): the counter-hash spike draw, the streamlined LIF update,
+// the binary stochastic STDP arithmetic, a warp sum, and the launch
+// helpers that fit a block's shared memory.
+//
+// All packed words are u32 bit patterns (the port holds them as int32
+// tensors).  Integer arithmetic that the JAX package does in wrapping
+// int32 is done here in uint32_t and cast back: signed overflow is
+// undefined in C++.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace snn {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Error code of a bank whose synapse row does not fit one block.
+constexpr int kRowTooWide = -1;
+
+// Mirror of repro_torch.core.lfsr.counter_hash (wrapping u32).
+__device__ __forceinline__ uint32_t counter_hash(uint32_t seed,
+                                                 uint32_t cycle,
+                                                 uint32_t idx) {
+  uint32_t h = seed + cycle * 0x9E3779B9u + idx * 0x85EBCA6Bu;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+// Stage one sample's intensities (n_in bytes) into in_s, zero-padded to
+// 32 * W bytes: padding inputs never fire.
+__device__ __forceinline__ void stage_intensities(
+    uint8_t* in_s, const uint8_t* __restrict__ in_g, int n_in, int W) {
+  for (int i = threadIdx.x; i < 32 * W; i += blockDim.x)
+    in_s[i] = i < n_in ? in_g[i] : 0;
+}
+
+// Packed word k of cycle t's spike row: bit i fires iff
+// counter_hash(seed, t, 32k + i) & 0xFF < intensity[32k + i].  in_s is
+// 4-byte aligned; byte j of its little-endian word q is input 4q + j.
+__device__ __forceinline__ uint32_t draw_word(const uint8_t* in_s,
+                                              uint32_t seed, uint32_t t,
+                                              int k) {
+  const uint32_t* px = reinterpret_cast<const uint32_t*>(in_s) + 8 * k;
+  const uint32_t base = 32u * static_cast<uint32_t>(k);
+  uint32_t word = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t four = px[q];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * q + j;
+      const uint32_t h = counter_hash(seed, t, base + i);
+      const uint32_t in = (four >> (8 * j)) & 0xFFu;
+      word |= static_cast<uint32_t>((h & 0xFFu) < in) << i;
+    }
+  }
+  return word;
+}
+
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+// Streamlined LIF: v' = v + input; fire iff v' >= threshold; a fired
+// neuron resets to 0, else max(v' - leak, 0).  Returns the new v.
+__device__ __forceinline__ int32_t lif_update(int32_t v, int32_t input,
+                                              int threshold, int leak,
+                                              bool* fired) {
+  const int32_t v_int = add32(v, input);
+  *fired = v_int >= threshold;
+  const int32_t leaked = static_cast<int32_t>(static_cast<uint32_t>(v_int) -
+                                              static_cast<uint32_t>(leak));
+  return *fired ? 0 : max(leaked, 0);
+}
+
+// Sum over the warp; every lane gets the total.
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// One step of the 16-bit Fibonacci LFSR (taps 16, 14, 13, 11), as
+// repro_torch.core.lfsr.step.
+__device__ __forceinline__ uint32_t lfsr_step(uint32_t s) {
+  const uint32_t fb = (s ^ (s >> 2) ^ (s >> 3) ^ (s >> 5)) & 1u;
+  return ((s >> 1) | (fb << 15)) & 0xFFFFu;
+}
+
+// Homeostatic LTD probability of a row with pc ON synapses:
+// clip((pc - w_exp) * gain * 1024 // n_syn, 0, 1023), the product
+// wrapping in int32.  Truncating and floor division agree after the clip
+// for n_syn >= 1, which the wrappers require.
+__device__ __forceinline__ uint32_t ltd_prob(int pc, int w_exp, int gain,
+                                             int n_syn) {
+  const uint32_t d = static_cast<uint32_t>(pc) - static_cast<uint32_t>(w_exp);
+  const int32_t excess =
+      static_cast<int32_t>(d * static_cast<uint32_t>(gain) * 1024u) / n_syn;
+  return static_cast<uint32_t>(min(max(excess, 0), 1023));
+}
+
+// The shared memory one block may opt into on the current device.
+inline cudaError_t block_smem_limit(size_t* limit) {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *limit = static_cast<size_t>(bytes);
+  return err;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace snn

@@ -47,23 +47,12 @@
 
 #include <algorithm>
 
+#include "snn_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// Mirror of repro_torch.core.lfsr.counter_hash (wrapping u32).
-__device__ __forceinline__ uint32_t counter_hash(uint32_t seed,
-                                                 uint32_t cycle,
-                                                 uint32_t idx) {
-  uint32_t h = seed + cycle * 0x9E3779B9u + idx * 0x85EBCA6Bu;
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
+using snn::kThreads;
+using snn::kWarps;
 
 // Weight tiles: at most kTileWords words (128 KiB) and kMaxTileRows
 // neurons per block, so large layers still give many blocks.
@@ -135,13 +124,10 @@ __device__ __forceinline__ void integrate(const Tile& s, int rows_here,
     const uint32_t* row = s.w_s + static_cast<size_t>(r) * W;
     int acc = 0;
     for (int k = lane; k < W; k += 32) acc += __popc(s.pre_s[k] & row[k]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    acc = snn::warp_sum(acc);
     if (lane == 0) {
-      const int v_int = s.v_s[r] + acc;
-      const bool fired = v_int >= threshold;
-      s.v_s[r] = fired ? 0 : max(v_int - leak, 0);
+      bool fired;
+      s.v_s[r] = snn::lif_update(s.v_s[r], acc, threshold, leak, &fired);
       s.cnt_s[r] += fired ? 1 : 0;
     }
   }
@@ -169,34 +155,15 @@ infer_window_enc_kernel(const uint32_t* __restrict__ weights,
   const Tile s = carve(smem, rows, W, true);
 
   load_tile(s, weights + static_cast<size_t>(row0) * W, rows_here, W);
-  const uint8_t* in_g = intensities + static_cast<size_t>(b) * n_in;
-  for (int i = threadIdx.x; i < 32 * W; i += blockDim.x)
-    s.in_s[i] = i < n_in ? in_g[i] : 0;   // padding inputs never fire
+  snn::stage_intensities(s.in_s, intensities + static_cast<size_t>(b) * n_in,
+                         n_in, W);
   const uint32_t seed = static_cast<uint32_t>(seeds[b]);
   const int t_end = min(max(t_total[b], 0), n_steps);
   __syncthreads();
 
   for (int t = 0; t < t_end; ++t) {
-    for (int k = threadIdx.x; k < W; k += blockDim.x) {
-      // The word's 32 intensities, four per load (in_s is 4-byte
-      // aligned; byte j of a little-endian word is input 4q + j).
-      const uint32_t* px = reinterpret_cast<const uint32_t*>(s.in_s) + 8 * k;
-      const uint32_t base = 32u * static_cast<uint32_t>(k);
-      uint32_t word = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const uint32_t four = px[q];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = 4 * q + j;
-          const uint32_t h = counter_hash(seed, static_cast<uint32_t>(t),
-                                          base + i);
-          const uint32_t in = (four >> (8 * j)) & 0xFFu;
-          word |= static_cast<uint32_t>((h & 0xFFu) < in) << i;
-        }
-      }
-      s.pre_s[k] = word;
-    }
+    for (int k = threadIdx.x; k < W; k += blockDim.x)
+      s.pre_s[k] = snn::draw_word(s.in_s, seed, static_cast<uint32_t>(t), k);
     __syncthreads();
     integrate(s, rows_here, W, threshold, leak);
     __syncthreads();
@@ -238,39 +205,17 @@ int tile_rows(int n, int W, bool encode, size_t limit) {
   return rows;
 }
 
-// The shared memory one block may opt into on the current device.
-cudaError_t block_smem_limit(size_t* limit) {
-  int dev = 0, bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *limit = static_cast<size_t>(bytes);
-  return err;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Error code of a bank whose synapse row does not fit one block.
-constexpr int kRowTooWide = -1;
-
 // Picks the tile, lets the kernel use its shared memory, launches.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int B, int n, int W, bool encode, void* stream,
            Args... args) {
   size_t limit = 0;
-  cudaError_t err = block_smem_limit(&limit);
+  cudaError_t err = snn::block_smem_limit(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = tile_rows(n, W, encode, limit);
-  if (rows == 0) return kRowTooWide;
+  if (rows == 0) return snn::kRowTooWide;
   const size_t smem = layout(rows, W, encode).total;
-  err = allow_smem(kernel, smem);
+  err = snn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + rows - 1) / rows, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -314,7 +259,7 @@ int snn_infer_window_batch(const void* weights, const void* spikes,
 // (0: a row does not fit), and the block's shared-memory bytes.
 int snn_tile_rows(int n, int W, int encode) {
   size_t limit = 0;
-  if (block_smem_limit(&limit) != cudaSuccess) return 0;
+  if (snn::block_smem_limit(&limit) != cudaSuccess) return 0;
   return tile_rows(n, W, encode != 0, limit);
 }
 
@@ -324,7 +269,7 @@ long long snn_smem_bytes(int rows, int W, int encode) {
 
 // Human-readable text of a code returned above.
 const char* snn_error_string(int err) {
-  if (err == kRowTooWide)
+  if (err == snn::kRowTooWide)
     return "one synapse row does not fit a block's shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,8 +1,10 @@
-"""Public wrappers of the serving kernels, with dispatch by device.
+"""Public wrappers of the window kernels, with dispatch by device.
 
   tensor on the CPU    -> the plain PyTorch version (``kernels/ref.py``)
-  tensor on a CUDA card -> the CUDA kernel (``csrc/snn_infer.cu``); a
-                          launch that fails raises, nothing falls back
+  tensor on a CUDA card -> the CUDA kernel (``csrc/snn_infer.cu`` for
+                          serving, ``csrc/snn_train.cu`` for the training
+                          and read-only windows); a launch that fails
+                          raises, nothing falls back
   backend="ref"        -> the plain version on any device, asked for
                           by name (the CPU degradation ladder's last
                           rung; comparisons with the kernels)
@@ -10,10 +12,16 @@
 Each wrapper counts its kernel launches in a plain integer attribute
 (``infer_window_batch.launches``), so a run can show that its main path
 went through the kernel; :func:`reset_launch_counts` sets them to 0.
+``fused_snn_window(train=True)`` is the one-stream case of
+:func:`train_window_batch` and launches (and counts) that kernel, as
+the JAX package's op does; ``train=False`` launches the read-only
+window kernel.  The encode forms pair the same way.
 
-``t_chunk`` is accepted for the JAX signature and has no effect: a
-block stages its weight tile in shared memory once and streams the
-window one cycle at a time, so there is no spike slab to bound.
+The kernels never write their inputs: the training ops return new
+weight, v and LFSR tensors.  ``t_chunk`` is accepted for the JAX
+signature and has no effect: a block stages its state in shared memory
+once and streams the window one cycle at a time, so there is no spike
+slab to bound.
 """
 
 from __future__ import annotations
@@ -28,57 +36,96 @@ from repro_torch.core.bitpack import as_i32
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-_SOURCE = "snn_infer"
+_SOURCES = ("snn_infer", "snn_train")
 _BACKENDS = ("kernel", "ref")
 
 _MAX_GRID_Y = 65_535      # samples ride the grid's y dimension
 _ROW_TOO_WIDE = -1        # the launchers' code for a row that does not fit
 
 
+# (symbol, pointer arguments, int arguments, takes a stream) of each
+# library's C functions; a launcher takes the stream as a last pointer.
+_SIGNATURES = {
+    "snn_infer": (("snn_infer_window_batch_encode", 5, 7, True),
+                  ("snn_infer_window_batch", 3, 6, True),
+                  ("snn_tile_rows", 0, 3, False),
+                  ("snn_smem_bytes", 0, 3, False)),
+    "snn_train": (("snn_train_window_batch", 10, 9, True),
+                  ("snn_train_window_batch_encode", 11, 10, True),
+                  ("snn_window_infer", 6, 6, True),
+                  ("snn_window_infer_encode", 7, 7, True),
+                  ("snn_train_tile_rows", 0, 4, False),
+                  ("snn_train_smem_bytes", 0, 4, False)),
+}
+_ERROR_STRING = {"snn_infer": "snn_error_string",
+                 "snn_train": "snn_train_error_string"}
+
+
 @functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
+def _libraries() -> dict[str, ctypes.CDLL]:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.snn_infer_window_batch_encode.argtypes = (
-        [ptr] * 5 + [i32] * 7 + [ptr])
-    lib.snn_infer_window_batch_encode.restype = i32
-    lib.snn_infer_window_batch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
-    lib.snn_infer_window_batch.restype = i32
-    lib.snn_tile_rows.argtypes = [i32] * 3
-    lib.snn_tile_rows.restype = i32
-    lib.snn_smem_bytes.argtypes = [i32] * 3
-    lib.snn_smem_bytes.restype = ctypes.c_longlong
-    lib.snn_error_string.argtypes = [i32]
-    lib.snn_error_string.restype = ctypes.c_char_p
-    return lib
+    libs = {name: ctypes.CDLL(str(path))
+            for name, path in build.build_all(_SOURCES).items()}
+    for name, lib in libs.items():
+        for symbol, n_ptr, n_int, stream in _SIGNATURES[name]:
+            fn = getattr(lib, symbol)
+            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * stream
+            fn.restype = (ctypes.c_longlong if symbol.endswith("smem_bytes")
+                          else i32)
+        err = getattr(lib, _ERROR_STRING[name])
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+    return libs
 
 
 def load_kernels() -> None:
-    """Build (``nvcc``, first use only) and load the serving kernels.
-    Raises if the build fails."""
-    _kernels()
+    """Build (``nvcc``, first use only, one compiler per source, all at
+    once) and load every kernel library.  Raises if a build fails."""
+    _libraries()
 
 
 def tile_rows(n: int, words: int, encode: bool) -> int:
     """Neurons per thread block the kernel takes for an ``n``-neuron,
     ``words``-wide bank on the current card (0: one row does not fit
     its shared memory).  The layout lives in ``csrc/snn_infer.cu``."""
-    return _kernels().snn_tile_rows(n, words, int(encode))
+    return _libraries()["snn_infer"].snn_tile_rows(n, words, int(encode))
 
 
 def smem_bytes(rows: int, words: int, encode: bool) -> int:
     """Shared-memory bytes of one block holding ``rows`` neurons."""
-    return _kernels().snn_smem_bytes(rows, words, int(encode))
+    return _libraries()["snn_infer"].snn_smem_bytes(rows, words,
+                                                    int(encode))
+
+
+def train_tile_rows(n: int, words: int, encode: bool, learn: bool) -> int:
+    """Neurons per thread block of the training (``learn``) or read-only
+    window kernels on the current card (0: one row, weights and LFSR
+    lanes, does not fit its shared memory).  The layout lives in
+    ``csrc/snn_train.cu``."""
+    return _libraries()["snn_train"].snn_train_tile_rows(
+        n, words, int(encode), int(learn))
+
+
+def train_smem_bytes(rows: int, words: int, encode: bool,
+                     learn: bool) -> int:
+    """Shared-memory bytes of one training-window block of ``rows``."""
+    return _libraries()["snn_train"].snn_train_smem_bytes(
+        rows, words, int(encode), int(learn))
+
+
+def _wrappers():
+    return (infer_window_batch_encode, infer_window_batch,
+            train_window_batch, train_window_batch_encode,
+            fused_snn_window, fused_snn_window_encode)
 
 
 def launch_counts() -> dict[str, int]:
-    return {f.__name__: f.launches
-            for f in (infer_window_batch_encode, infer_window_batch)}
+    return {f.__name__: f.launches for f in _wrappers()}
 
 
 def reset_launch_counts() -> None:
-    infer_window_batch_encode.launches = 0
-    infer_window_batch.launches = 0
+    for f in _wrappers():
+        f.launches = 0
 
 
 def _check_backend(backend: str) -> None:
@@ -88,8 +135,9 @@ def _check_backend(backend: str) -> None:
 
 
 def seed_vector(seeds, b: int, device: torch.device) -> torch.Tensor:
-    """Counter seeds as int32[b] bit patterns on ``device``: values are
-    taken mod 2**32 (negative int32 and u32 seeds agree).  An int32[b]
+    """Counter seeds (or any per-stream u32 operand, such as
+    ``ltp_prob``) as int32[b] bit patterns on ``device``: values are
+    taken mod 2**32 (negative int32 and u32 values agree).  An int32[b]
     tensor already there passes through; anything else is converted on
     the host and copied to ``device`` once."""
     if isinstance(seeds, torch.Tensor):
@@ -97,7 +145,11 @@ def seed_vector(seeds, b: int, device: torch.device) -> torch.Tensor:
                 and seeds.shape == (b,)):
             return seeds.contiguous()
         seeds = seeds.cpu()
-    return as_i32(lfsr.u32(seeds).expand(b)).contiguous().to(device)
+    values = lfsr.u32(seeds)
+    if values.numel() != 1 and tuple(values.shape) != (b,):
+        raise ValueError(f"expected one value or {b} (one per stream), "
+                         f"got shape {tuple(values.shape)}")
+    return as_i32(values.reshape(-1).expand(b)).contiguous().to(device)
 
 
 def _check_operands(what: str, **tensors) -> torch.device:
@@ -126,12 +178,14 @@ def _check_grid(what: str, b: int) -> None:
                          f"{_MAX_GRID_Y} samples per launch")
 
 
-def _launch(what: str, fn, dev: torch.device, *args) -> None:
+def _launch(what: str, library: str, symbol: str, dev: torch.device,
+            *args) -> None:
+    lib = _libraries()[library]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+        err = getattr(lib, symbol)(*args, stream)
     if err != 0:
-        msg = _kernels().snn_error_string(err).decode()
+        msg = getattr(lib, _ERROR_STRING[library])(err).decode()
         raise (ValueError if err == _ROW_TOO_WIDE else RuntimeError)(
             f"{what}: CUDA launch failed ({err}): {msg}")
 
@@ -181,7 +235,7 @@ def infer_window_batch_encode(weights: torch.Tensor,
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return counts.zero_()
-    _launch(what, _kernels().snn_infer_window_batch_encode, dev,
+    _launch(what, "snn_infer", "snn_infer_window_batch_encode", dev,
             weights.data_ptr(), intensities.data_ptr(), sd.data_ptr(),
             tt.data_ptr(), counts.data_ptr(), b, n, w, n_in, n_steps,
             threshold, leak)
@@ -214,12 +268,236 @@ def infer_window_batch(weights: torch.Tensor, spike_trains: torch.Tensor,
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return counts.zero_()
-    _launch(what, _kernels().snn_infer_window_batch, dev,
+    _launch(what, "snn_infer", "snn_infer_window_batch", dev,
             weights.data_ptr(), spike_trains.data_ptr(), counts.data_ptr(),
             b, n, w, t_steps, threshold, leak)
     infer_window_batch.launches += 1
     return counts
 
 
-infer_window_batch_encode.launches = 0
-infer_window_batch.launches = 0
+
+# --- training and read-only windows (csrc/snn_train.cu) --------------------
+
+def _check_shapes(what: str, **shapes) -> None:
+    """Each operand's shape as the kernel reads it
+    (``name=(tensor, expected shape)``)."""
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
+
+
+def _check_window(what: str, b: int, n_syn: int) -> None:
+    _check_grid(what, b)
+    if n_syn < 1:
+        raise ValueError(f"{what}: n_syn must be >= 1, got {n_syn}")
+
+
+def _check_encode(what: str, n_in: int, w: int, n_steps: int) -> None:
+    if n_in > 32 * w:
+        raise ValueError(f"{what}: {n_in} intensities exceed the {w}-word "
+                         f"spike width ({32 * w} inputs)")
+    if n_steps < 0:
+        raise ValueError(f"{what}: n_steps must be >= 0, got {n_steps}")
+
+
+def _train_outputs(b: int, n: int, w: int, t_steps: int,
+                   dev: torch.device):
+    """New (weights', v', fired, lfsr') tensors for a training launch."""
+    return (torch.empty((b, n, w), dtype=torch.int32, device=dev),
+            torch.empty((b, n), dtype=torch.int32, device=dev),
+            torch.empty((b, t_steps, n), dtype=torch.bool, device=dev),
+            torch.empty((b, n, w), dtype=torch.int32, device=dev))
+
+
+def train_window_batch(weights: torch.Tensor, spike_trains: torch.Tensor,
+                       v: torch.Tensor, lfsr_state: torch.Tensor,
+                       teach: torch.Tensor, *, threshold: int, leak: int,
+                       w_exp: int, gain: int, n_syn: int, ltp_prob=1023,
+                       t_chunk: int | None = None,
+                       backend: str = "kernel"):
+    """B independent training streams, T fused SNNU cycles each.
+
+    weights, lfsr_state int32[B, n, w] (u32 bit patterns, 16-bit LFSR
+    lanes), spike_trains int32[B, T, w], v, teach int32[B, n];
+    ``ltp_prob`` an int shared by every stream or one per stream
+    (int32[B], compared as u32).  Stream b is exactly one
+    :func:`fused_snn_window` run.  Returns new (weights', v', fired
+    bool[B, T, n], lfsr').
+    """
+    _check_backend(backend)
+    if backend == "ref" or weights.device.type == "cpu":
+        return _ref.train_window_batch_ref(
+            weights, spike_trains, v, lfsr_state, teach, threshold, leak,
+            w_exp, gain, n_syn, ltp_prob)
+    what = "train_window_batch"
+    b, n, w = weights.shape
+    t_steps = spike_trains.shape[1]
+    lp = seed_vector(ltp_prob, b, weights.device)
+    dev = _check_operands(what, weights=(weights, torch.int32, 3),
+                          spike_trains=(spike_trains, torch.int32, 3),
+                          v=(v, torch.int32, 2),
+                          lfsr_state=(lfsr_state, torch.int32, 3),
+                          teach=(teach, torch.int32, 2),
+                          ltp_prob=(lp, torch.int32, 1))
+    _check_shapes(what, spike_trains=(spike_trains, (b, t_steps, w)),
+                  v=(v, (b, n)), lfsr_state=(lfsr_state, (b, n, w)),
+                  teach=(teach, (b, n)))
+    _check_window(what, b, n_syn)
+    w2, v2, fired, lf2 = _train_outputs(b, n, w, t_steps, dev)
+    if b == 0 or n == 0:
+        return w2, v2, fired, lf2
+    _launch(what, "snn_train", "snn_train_window_batch", dev,
+            weights.data_ptr(), spike_trains.data_ptr(), v.data_ptr(),
+            lfsr_state.data_ptr(), teach.data_ptr(), lp.data_ptr(),
+            w2.data_ptr(), v2.data_ptr(), fired.data_ptr(), lf2.data_ptr(),
+            b, n, w, t_steps, threshold, leak, w_exp, gain, n_syn)
+    train_window_batch.launches += 1
+    return w2, v2, fired, lf2
+
+
+def train_window_batch_encode(weights: torch.Tensor,
+                              intensities: torch.Tensor, seeds,
+                              v: torch.Tensor, lfsr_state: torch.Tensor,
+                              teach: torch.Tensor, *, n_steps: int,
+                              threshold: int, leak: int, w_exp: int,
+                              gain: int, n_syn: int, ltp_prob=1023,
+                              t_chunk: int | None = None,
+                              backend: str = "kernel"):
+    """:func:`train_window_batch` with each cycle's spikes drawn in the
+    kernel from uint8 ``intensities`` [B, n_in] (n_in <= 32 w) and
+    per-stream counter ``seeds`` (int | i32[B], read as u32).  Bit-exact
+    with host-encoding each stream and running the pre-packed op.
+    Returns new (weights', v', fired bool[B, n_steps, n], lfsr').
+    """
+    _check_backend(backend)
+    b, n, w = weights.shape
+    dev = weights.device
+    sd = seed_vector(seeds, b, dev)
+    if backend == "ref" or dev.type == "cpu":
+        return _ref.train_window_batch_encode_ref(
+            weights, intensities, sd, v, lfsr_state, teach, n_steps,
+            threshold, leak, w_exp, gain, n_syn, ltp_prob)
+    what = "train_window_batch_encode"
+    lp = seed_vector(ltp_prob, b, dev)
+    _check_operands(what, weights=(weights, torch.int32, 3),
+                    intensities=(intensities, torch.uint8, 2),
+                    seeds=(sd, torch.int32, 1), v=(v, torch.int32, 2),
+                    lfsr_state=(lfsr_state, torch.int32, 3),
+                    teach=(teach, torch.int32, 2),
+                    ltp_prob=(lp, torch.int32, 1))
+    n_in = intensities.shape[1]
+    _check_shapes(what, intensities=(intensities, (b, n_in)),
+                  v=(v, (b, n)), lfsr_state=(lfsr_state, (b, n, w)),
+                  teach=(teach, (b, n)))
+    _check_encode(what, n_in, w, n_steps)
+    _check_window(what, b, n_syn)
+    w2, v2, fired, lf2 = _train_outputs(b, n, w, n_steps, dev)
+    if b == 0 or n == 0:
+        return w2, v2, fired, lf2
+    _launch(what, "snn_train", "snn_train_window_batch_encode", dev,
+            weights.data_ptr(), intensities.data_ptr(), sd.data_ptr(),
+            v.data_ptr(), lfsr_state.data_ptr(), teach.data_ptr(),
+            lp.data_ptr(), w2.data_ptr(), v2.data_ptr(), fired.data_ptr(),
+            lf2.data_ptr(), b, n, w, n_in, n_steps, threshold, leak,
+            w_exp, gain, n_syn)
+    train_window_batch_encode.launches += 1
+    return w2, v2, fired, lf2
+
+
+def fused_snn_window(weights: torch.Tensor, spike_train: torch.Tensor,
+                     v: torch.Tensor, lfsr_state: torch.Tensor,
+                     teach: torch.Tensor, *, threshold: int, leak: int,
+                     w_exp: int, gain: int, n_syn: int, ltp_prob=1023,
+                     train: bool = True, t_chunk: int | None = None,
+                     backend: str = "kernel"):
+    """T fused SNNU cycles on one stream.
+
+    weights, lfsr_state int32[n, w], spike_train int32[T, w], v, teach
+    int32[n].  ``train=True`` is the one-stream case of
+    :func:`train_window_batch`.  ``train=False`` (SU idle) runs the
+    read-only window: new v' and raster, and the input weights and LFSR
+    returned as they are.  Returns (weights', v', fired bool[T, n],
+    lfsr').
+    """
+    _check_backend(backend)
+    if train:
+        w2, v2, fired, lf2 = train_window_batch(
+            weights[None], spike_train[None], v[None], lfsr_state[None],
+            teach[None], threshold=threshold, leak=leak, w_exp=w_exp,
+            gain=gain, n_syn=n_syn, ltp_prob=ltp_prob, backend=backend)
+        return w2[0], v2[0], fired[0], lf2[0]
+    if backend == "ref" or weights.device.type == "cpu":
+        return _ref.fused_snn_window_ref(
+            weights, spike_train, v, lfsr_state, teach, threshold, leak,
+            w_exp, gain, n_syn, ltp_prob, False)
+    what = "fused_snn_window"
+    dev = _check_operands(what, weights=(weights, torch.int32, 2),
+                          spike_train=(spike_train, torch.int32, 2),
+                          v=(v, torch.int32, 1), teach=(teach, torch.int32, 1))
+    n, w = weights.shape
+    t_steps = spike_train.shape[0]
+    _check_shapes(what, spike_train=(spike_train, (t_steps, w)),
+                  v=(v, (n,)), teach=(teach, (n,)))
+    v2 = torch.empty((n,), dtype=torch.int32, device=dev)
+    fired = torch.empty((t_steps, n), dtype=torch.bool, device=dev)
+    if n:
+        _launch(what, "snn_train", "snn_window_infer", dev,
+                weights.data_ptr(), spike_train.data_ptr(), v.data_ptr(),
+                teach.data_ptr(), v2.data_ptr(), fired.data_ptr(), 1, n, w,
+                t_steps, threshold, leak)
+        fused_snn_window.launches += 1
+    return weights, v2, fired, lfsr_state
+
+
+def fused_snn_window_encode(weights: torch.Tensor,
+                            intensities: torch.Tensor, seed,
+                            v: torch.Tensor, lfsr_state: torch.Tensor,
+                            teach: torch.Tensor, *, n_steps: int,
+                            threshold: int, leak: int, w_exp: int,
+                            gain: int, n_syn: int, ltp_prob=1023,
+                            train: bool = True,
+                            t_chunk: int | None = None,
+                            backend: str = "kernel"):
+    """:func:`fused_snn_window` with the spikes drawn in the kernel from
+    uint8 ``intensities`` [n_in] and a counter ``seed`` (an int or a
+    one-element tensor, read as u32).  Bit-exact with host-encoding
+    ``encode_from_counter(seed, intensities, n_steps)`` and running the
+    pre-packed op.  Returns (weights', v', fired bool[n_steps, n],
+    lfsr').
+    """
+    _check_backend(backend)
+    dev = weights.device
+    sd = seed_vector(seed, 1, dev)
+    if train:
+        w2, v2, fired, lf2 = train_window_batch_encode(
+            weights[None], intensities[None], sd, v[None], lfsr_state[None],
+            teach[None], n_steps=n_steps, threshold=threshold, leak=leak,
+            w_exp=w_exp, gain=gain, n_syn=n_syn, ltp_prob=ltp_prob,
+            backend=backend)
+        return w2[0], v2[0], fired[0], lf2[0]
+    if backend == "ref" or dev.type == "cpu":
+        return _ref.fused_snn_window_encode_ref(
+            weights, intensities, sd, v, lfsr_state, teach, n_steps,
+            threshold, leak, w_exp, gain, n_syn, ltp_prob, False)
+    what = "fused_snn_window_encode"
+    _check_operands(what, weights=(weights, torch.int32, 2),
+                    intensities=(intensities, torch.uint8, 1),
+                    seed=(sd, torch.int32, 1), v=(v, torch.int32, 1),
+                    teach=(teach, torch.int32, 1))
+    n, w = weights.shape
+    n_in = intensities.shape[0]
+    _check_shapes(what, v=(v, (n,)), teach=(teach, (n,)))
+    _check_encode(what, n_in, w, n_steps)
+    v2 = torch.empty((n,), dtype=torch.int32, device=dev)
+    fired = torch.empty((n_steps, n), dtype=torch.bool, device=dev)
+    if n:
+        _launch(what, "snn_train", "snn_window_infer_encode", dev,
+                weights.data_ptr(), intensities.data_ptr(), sd.data_ptr(),
+                v.data_ptr(), teach.data_ptr(), v2.data_ptr(),
+                fired.data_ptr(), 1, n, w, n_in, n_steps, threshold, leak)
+        fused_snn_window_encode.launches += 1
+    return weights, v2, fired, lfsr_state
+
+
+reset_launch_counts()

@@ -1,8 +1,11 @@
-"""Plain PyTorch versions of the serving kernels.
+"""Plain PyTorch versions of the window kernels and their building
+blocks.
 
-The semantic ground truth of ``kernels/csrc/snn_infer.cu``: the CPU
-tests hold these against the JAX package, and ``chip_smoke.py`` holds
-the CUDA kernels against these on the card.  They run on any device.
+The semantic ground truth of ``kernels/csrc/snn_infer.cu`` and
+``snn_train.cu``: the CPU tests hold these against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels against these on the card.
+Each window version is a Python loop over cycles on tensors; they run
+on any device.  Words are int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 from repro_torch.core.bitpack import popcount
 from repro_torch.core.encoder import encode_windows_host
 from repro_torch.core.lif import LIFParams, lif_step as _lif_step
+from repro_torch.core.stdp import STDPParams, stdp_update as _stdp_update
 
 
 def spike_process_ref(spikes: torch.Tensor, weights: torch.Tensor
@@ -25,6 +29,106 @@ def lif_step_ref(v: torch.Tensor, count: torch.Tensor, threshold: int,
                  leak: int) -> tuple[torch.Tensor, torch.Tensor]:
     """NU: streamlined LIF.  v, count int32 -> (v' int32, fired bool)."""
     return _lif_step(v, count, LIFParams(threshold, leak))
+
+
+def stdp_update_ref(weights, pre_spikes, post_fired, lfsr_state,
+                    w_exp: int, gain: int, n_syn: int, ltp_prob
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SU: binary stochastic STDP row update (see ``core/stdp.py``);
+    leading stream axes broadcast, ``ltp_prob`` may be one per stream."""
+    return _stdp_update(weights, pre_spikes, post_fired, lfsr_state,
+                        STDPParams(w_exp, gain, n_syn, ltp_prob))
+
+
+def fused_snn_step_ref(weights, pre_spikes, v, lfsr_state, teach,
+                       threshold: int, leak: int, w_exp: int, gain: int,
+                       n_syn: int, ltp_prob, train: bool = True):
+    """SNNU: one fused spike -> neuron -> synapse cycle.
+
+    Returns (weights', v', fired bool, lfsr').  ``teach`` may be None;
+    ``train=False`` leaves the SU idle (weights and LFSR pass through).
+    Leading stream axes broadcast.
+    """
+    counts = spike_process_ref(pre_spikes, weights)
+    if teach is not None:
+        counts = counts + teach
+    v2, fired = lif_step_ref(v, counts, threshold, leak)
+    if not train:
+        return weights, v2, fired, lfsr_state
+    w2, lf2 = stdp_update_ref(weights, pre_spikes, fired, lfsr_state,
+                              w_exp, gain, n_syn, ltp_prob)
+    return w2, v2, fired, lf2
+
+
+def _window_ref(weights, spike_trains, v, lfsr_state, teach, threshold,
+                leak, w_exp, gain, n_syn, ltp_prob, train):
+    """T fused cycles over B streams (leading axis of every operand)."""
+    b, t_steps, _ = spike_trains.shape
+    rasters = []
+    for t in range(t_steps):
+        weights, v, fired, lfsr_state = fused_snn_step_ref(
+            weights, spike_trains[:, t], v, lfsr_state, teach, threshold,
+            leak, w_exp, gain, n_syn, ltp_prob, train)
+        rasters.append(fired)
+    fired = (torch.stack(rasters, dim=1) if rasters else
+             torch.zeros((b, 0, v.shape[-1]), dtype=torch.bool,
+                         device=v.device))
+    return weights, v, fired, lfsr_state
+
+
+def fused_snn_window_ref(weights, spike_train, v, lfsr_state, teach,
+                         threshold: int, leak: int, w_exp: int, gain: int,
+                         n_syn: int, ltp_prob, train: bool = True):
+    """T sequential fused cycles on one stream (the window kernels'
+    ground truth).  spike_train int32[T, w].  Returns (weights', v',
+    fired bool[T, n], lfsr'); with ``train=False`` weights and LFSR are
+    the inputs."""
+    w2, v2, fired, lf2 = _window_ref(
+        weights[None], spike_train[None], v[None], lfsr_state[None],
+        teach[None], threshold, leak, w_exp, gain, n_syn, ltp_prob, train)
+    if not train:
+        return weights, v2[0], fired[0], lfsr_state
+    return w2[0], v2[0], fired[0], lf2[0]
+
+
+def train_window_batch_ref(weights, spike_trains, v, lfsr_state, teach,
+                           threshold: int, leak: int, w_exp: int,
+                           gain: int, n_syn: int, ltp_prob):
+    """B independent training streams: weights, lfsr int32[B, n, w],
+    spike_trains int32[B, T, w], v, teach int32[B, n]; ``ltp_prob`` an
+    int or one value per stream.  Stream b is exactly one
+    :func:`fused_snn_window_ref` run.  Returns (weights', v', fired
+    bool[B, T, n], lfsr')."""
+    lp = torch.as_tensor(ltp_prob, dtype=torch.int64,
+                         device=weights.device).expand(weights.shape[0])
+    return _window_ref(weights, spike_trains, v, lfsr_state, teach,
+                       threshold, leak, w_exp, gain, n_syn, lp, True)
+
+
+def fused_snn_window_encode_ref(weights, intensities, seed, v, lfsr_state,
+                                teach, n_steps: int, threshold: int,
+                                leak: int, w_exp: int, gain: int,
+                                n_syn: int, ltp_prob, train: bool = True):
+    """Encode-fused window: host-encode, then :func:`fused_snn_window_ref`.
+    intensities uint8[n_in], seed an int or a one-element tensor."""
+    win = encode_windows_host(seed, intensities[None], n_steps,
+                              weights.shape[1])[0]
+    return fused_snn_window_ref(weights, win, v, lfsr_state, teach,
+                                threshold, leak, w_exp, gain, n_syn,
+                                ltp_prob, train)
+
+
+def train_window_batch_encode_ref(weights, intensities, seeds, v,
+                                  lfsr_state, teach, n_steps: int,
+                                  threshold: int, leak: int, w_exp: int,
+                                  gain: int, n_syn: int, ltp_prob):
+    """Encode-fused batched training: host-encode every stream, then
+    :func:`train_window_batch_ref`.  intensities uint8[B, n_in]."""
+    wins = encode_windows_host(seeds, intensities, n_steps,
+                               weights.shape[2])
+    return train_window_batch_ref(weights, wins, v, lfsr_state, teach,
+                                  threshold, leak, w_exp, gain, n_syn,
+                                  ltp_prob)
 
 
 def infer_window_batch_ref(weights: torch.Tensor,

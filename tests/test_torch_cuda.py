@@ -130,8 +130,7 @@ def test_cuda_serving_fails_instead_of_serving_the_plain_version(cuda):
     assert [r.status for r in reqs] == ["FAILED"] * 4
     assert [p.kernel_backend for p in eng._plans] == ["kernel", "kernel"]
     assert eng.degraded == 1 and eng.level == 1
-    assert ops.launch_counts() == {"infer_window_batch_encode": 0,
-                                   "infer_window_batch": 0}
+    assert all(v == 0 for v in ops.launch_counts().values())
 
 
 @pytest.mark.gpu
@@ -150,7 +149,11 @@ def test_cuda_integrity_reserve_runs_a_kernel(cuda):
     assert eng.integrity_failures == 4 and eng.level == 1
     # the serve on the encode kernel, the re-serve on the pre-packed one
     assert ops.launch_counts() == {"infer_window_batch_encode": 1,
-                                   "infer_window_batch": 1}
+                                   "infer_window_batch": 1,
+                                   "train_window_batch": 0,
+                                   "train_window_batch_encode": 0,
+                                   "fused_snn_window": 0,
+                                   "fused_snn_window_encode": 0}
     inten = torch.from_numpy(np.stack([r.intensities for r in reqs]))
     seeds = torch.tensor([r.seed for r in reqs])
     tt = torch.tensor([r.n_steps for r in reqs], dtype=torch.int32)
@@ -158,3 +161,177 @@ def test_cuda_integrity_reserve_runs_a_kernel(cuda):
         as_words(bank), encode_windows_host(seeds, inten, 16, 4, tt),
         40, 3)
     assert np.array_equal(np.stack([r.counts for r in reqs]), want.numpy())
+
+
+# --- training and read-only window kernels (csrc/snn_train.cu) --------------
+
+def _train_operands(seed, b, n, n_in, t, cuda):
+    rng = np.random.default_rng(seed)
+    w = -(-n_in // 32)
+    words = lambda shape: as_words(                      # noqa: E731
+        rng.integers(0, 2**32, shape, dtype=np.uint32), cuda)
+    weights, lfsr = words((b, n, w)), as_words(
+        rng.integers(1, 2**16, (b, n, w)).astype(np.uint32), cuda)
+    spikes = as_words(_sparse_windows(rng, b, t, w), cuda)
+    v = torch.from_numpy(rng.integers(0, 40, (b, n)).astype(np.int32)).to(cuda)
+    labels = rng.integers(0, n, b)
+    teach = torch.from_numpy(np.where(
+        np.arange(n)[None] == labels[:, None], 64, -300).astype(np.int32)
+    ).to(cuda)
+    inten = rng.integers(0, 256, (b, n_in), dtype=np.uint8)
+    inten[rng.random((b, n_in)) < 0.6] = 0
+    inten = torch.from_numpy(inten).to(cuda)
+    seeds = torch.from_numpy(np.resize(SEEDS, b)).to(cuda)
+    ltp = torch.from_numpy(np.resize(np.array([16, 1023, 0, -1], np.int32),
+                                     b)).to(cuda)
+    kw = dict(threshold=max(8, n_in * 3 // 16), leak=5, w_exp=n_in // 6,
+              gain=4, n_syn=n_in)
+    return weights, lfsr, spikes, v, teach, inten, seeds, ltp, kw
+
+
+def _equal_all(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,n_in,t", [(4, 10, 784, 72), (3, 70, 4096, 9),
+                                        (2, 130, 65536, 4)])
+def test_cuda_train_kernels_equal_plain_versions(cuda, b, n, n_in, t):
+    weights, lfsr, spikes, v, teach, inten, seeds, ltp, kw = \
+        _train_operands(n + t, b, n, n_in, t, cuda)
+    ins = [x.clone() for x in (weights, lfsr, spikes, v, teach)]
+    ops.reset_launch_counts()
+    got = ops.train_window_batch(weights, spikes, v, lfsr, teach,
+                                 ltp_prob=ltp, **kw)
+    enc = ops.train_window_batch_encode(weights, inten, seeds, v, lfsr,
+                                        teach, n_steps=t, ltp_prob=ltp, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["train_window_batch"] == 1
+    assert ops.launch_counts()["train_window_batch_encode"] == 1
+    _equal_all(got, ops.train_window_batch(weights, spikes, v, lfsr, teach,
+                                           ltp_prob=ltp, backend="ref",
+                                           **kw))
+    _equal_all(enc, ops.train_window_batch_encode(
+        weights, inten, seeds, v, lfsr, teach, n_steps=t, ltp_prob=ltp,
+        backend="ref", **kw))
+    assert got[2].any()
+    for a, x in zip(ins, (weights, lfsr, spikes, v, teach)):
+        assert torch.equal(a, x)             # inputs never written
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("n,n_in,t", [(10, 784, 72), (1000, 65536, 3)])
+def test_cuda_fused_windows_equal_plain_versions(cuda, train, n, n_in, t):
+    weights, lfsr, spikes, v, teach, inten, seeds, _, kw = \
+        _train_operands(n, 1, n, n_in, t, cuda)
+    kw = dict(kw, ltp_prob=16, train=train)
+    ops.reset_launch_counts()
+    got = ops.fused_snn_window(weights[0], spikes[0], v[0], lfsr[0],
+                               teach[0], **kw)
+    enc = ops.fused_snn_window_encode(weights[0], inten[0], seeds[:1], v[0],
+                                      lfsr[0], teach[0], n_steps=t, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if train:
+        assert counts["train_window_batch"] == 1
+        assert counts["train_window_batch_encode"] == 1
+    else:
+        assert counts["fused_snn_window"] == 1
+        assert counts["fused_snn_window_encode"] == 1
+        assert got[0] is weights[0] or torch.equal(got[0], weights[0])
+    _equal_all(got, ops.fused_snn_window(weights[0], spikes[0], v[0],
+                                         lfsr[0], teach[0], backend="ref",
+                                         **kw))
+    _equal_all(enc, ops.fused_snn_window_encode(
+        weights[0], inten[0], seeds[:1], v[0], lfsr[0], teach[0],
+        n_steps=t, backend="ref", **kw))
+
+
+@pytest.mark.gpu
+def test_cuda_train_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    weights, lfsr, spikes, v, teach, inten, seeds, ltp, kw = \
+        _train_operands(1, 2, 8, 100, 4, cuda)
+    with pytest.raises(ValueError, match="n_syn"):
+        ops.train_window_batch(weights, spikes, v, lfsr, teach,
+                               **dict(kw, n_syn=0))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.train_window_batch(weights.transpose(1, 2).contiguous()
+                               .transpose(1, 2), spikes, v, lfsr, teach,
+                               **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.train_window_batch(weights, spikes, v.cpu(), lfsr, teach, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        ops.train_window_batch(weights, spikes, v,
+                               lfsr[:, :4].contiguous(), teach, **kw)
+    with pytest.raises(ValueError, match="dtype|torch"):
+        ops.train_window_batch(weights, spikes, v.to(torch.int64), lfsr,
+                               teach, **kw)
+    with pytest.raises(ValueError, match="exceed"):
+        ops.train_window_batch_encode(weights[:, :, :1].contiguous(), inten,
+                                      seeds, v, lfsr[:, :, :1].contiguous(),
+                                      teach, n_steps=4, **kw)
+    with pytest.raises(ValueError, match="per stream"):
+        ops.train_window_batch(weights, spikes, v, lfsr, teach,
+                               ltp_prob=torch.zeros(3, dtype=torch.int32,
+                                                    device=cuda), **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_failing_train_launches_raise(cuda):
+    # a row of 32,768 words with its LFSR lanes (256 KiB) fits no block
+    assert ops.train_tile_rows(4, 32768, encode=False, learn=True) == 0
+    w = torch.zeros((1, 4, 32768), dtype=torch.int32, device=cuda)
+    z = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.train_window_batch(w, w[:, :1], z, w, z, threshold=1, leak=0,
+                               w_exp=0, gain=0, n_syn=1)
+    # a grid of 70,000 streams is refused by the card itself
+    v = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    out = torch.empty((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        ops._launch("probe", "snn_train", "snn_window_infer", cuda,
+                    w.data_ptr(), w.data_ptr(), v.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), out.data_ptr(), 70_000, 4, 1, 1, 1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,words,encode,learn", [(10, 25, True, True),
+                                                  (1000, 2048, True, True),
+                                                  (1000, 2048, False, False),
+                                                  (7, 1, False, True)])
+def test_train_tile_rows_fit_shared_memory(cuda, n, words, encode, learn):
+    rows = ops.train_tile_rows(n, words, encode, learn)
+    limit = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    assert 1 <= rows <= n
+    assert ops.train_smem_bytes(rows, words, encode, learn) <= limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,encode", [("parallel", "kernel"),
+                                         ("active", "kernel"),
+                                         ("active", "host")])
+def test_cuda_trainer_equals_the_cpu_run(cuda, mode, encode):
+    import dataclasses
+
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A_INTENSITY
+    from repro_torch.core import trainer
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    x, labels = preprocessed_digits(30, 3)
+    cfg = dataclasses.replace(WENQUXING_22A_INTENSITY, n_neurons=20,
+                              n_steps=24, epochs=1, train_mode=mode,
+                              encode=encode)
+    ops.reset_launch_counts()
+    card = trainer.train(cfg, x, labels, device=cuda)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["train_window_batch" if encode == "host"
+                  else "train_window_batch_encode"] > 0
+    host = trainer.train(cfg, x, labels, device="cpu")
+    assert card.weights.device.type == "cuda"
+    assert torch.equal(card.weights.cpu(), host.weights)
+    assert torch.equal(card.neuron_class.cpu(), host.neuron_class)

@@ -297,5 +297,6 @@ def test_serve_cli_runs_on_the_cpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "oracle-check: ok" in proc.stdout
     assert "SERVED=6" in proc.stdout
-    assert ops.launch_counts() == {"infer_window_batch_encode": 0,
-                                   "infer_window_batch": 0}
+    assert set(ops.launch_counts()) >= {"infer_window_batch_encode",
+                                        "infer_window_batch"}
+    assert all(v == 0 for v in ops.launch_counts().values())

@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 
 1. Device: requires a CUDA card; prints the card's name and power limit.
 2. Build: compiles the kernel libraries with ``nvcc`` into ``build/``
-   (``snn_infer.cu`` and ``snn_train.cu``, one compiler each, at once)
-   and prints their ptxas lines.
+   (``snn_infer.cu``, ``snn_train.cu`` and ``snn_step.cu``, one compiler
+   each, at once) and prints their ptxas lines.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the
    card (every output ``torch.equal``), then timed, with its bound.
    Serving kernels: the paper's shape (B = 32, 784 inputs, 40 neurons,
@@ -18,7 +18,13 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    T = 72, ltp_prob [16, 1023, 1023, 1023]: the trainer's parallel
    launch at 784-40), "train-active" (B = 1: active mode's launch) and
    "large" (B = 4, 65,536 inputs, 1,000 neurons, T = 72); the read-only
-   windows at "train-active" and "large" with B = 1.
+   windows at "train-active" and "large" with B = 1.  Step kernels (one
+   RV-SNN instruction cycle each): "step-parallel" (one cycle of the
+   trainer's parallel launch, B = 4 streams of 10 neurons, 784 inputs),
+   "step-active" (one stream), "step-infer" (B = 32 samples against one
+   shared 40-neuron bank, SU idle), "large" (1,000 neurons of 65,536
+   inputs) and the quickstart's (n = 40, w = 25); the unfused
+   SPU -> NU -> SU chain must equal the fused step.
 4. The serving slice: Wenquxing 22A intensity requests served through
    the port's ``SNNServingEngine`` on the card; every request must be
    SERVED, with no degradation, and equal to the plain version's counts
@@ -37,7 +43,18 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    and class maps.  Prints samples/s, ms per presented sample, the test
    accuracy on 200 digits (not gated) and the launch counts, then one
    parallel-mode run under ``torch.profiler``.
-7. Prints the kernels' JSON line, then, last,
+7. The step slice: the same training at 784-40 (``WENQUXING_22A``,
+   host encode, one epoch of 256 digits, both train modes) with
+   ``cycle_backend="step"`` (one fused RV-SNN step launch per cycle),
+   held bit-equal to the window path on the card (weights, class maps,
+   predictions on 200 test digits), with the launch counts set to 0
+   before and read after and every plain version watched; one
+   presentation through the fine-grained instructions (``snn.sp``,
+   ``snn.nu``, ``snn.su``) held equal to ``snn.step``.  Prints each
+   mode's times beside the window path's, traces a short step-path run
+   under ``torch.profiler``, and runs ``launch/quickstart.py`` on the
+   card.
+8. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -47,8 +64,12 @@ standard library.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +82,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/snn_infer.cu"
 TRAIN_SOURCE = "src/repro_torch/kernels/csrc/snn_train.cu"
+STEP_SOURCE = "src/repro_torch/kernels/csrc/snn_step.cu"
 PALLAS = "src/repro/kernels/snn_kernels.py"
 
 # H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth.  Integer
@@ -153,6 +175,15 @@ class Rates:
         return cls(INT32_PER_SM_CLK * per_s, POPC_PER_SM_CLK * per_s)
 
 
+def roofline(rates: Rates, moved: float, ints: float, popc: float
+             ) -> tuple[float, str]:
+    """The larger of the time to move ``moved`` bytes over HBM and the
+    time for the integer work, and which of the two it is."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = max(ints / rates.int32_per_s, popc / rates.popc_per_s)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
 def bound(rates: Rates, *, n: int, words: int, b: int, n_in: int,
           active_cycles: int, encode: bool, t_steps: int
           ) -> tuple[float, str]:
@@ -165,9 +196,7 @@ def bound(rates: Rates, *, n: int, words: int, b: int, n_in: int,
     ints = 2 * popc + active_cycles * n * LIF_OPS
     if encode:
         ints += active_cycles * n_in * HASH_OPS
-    t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = max(ints / rates.int32_per_s, popc / rates.popc_per_s)
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    return roofline(rates, moved, ints, popc)
 
 
 def outputs_of(result) -> tuple:
@@ -283,9 +312,7 @@ def train_bound(rates: Rates, *, b: int, n: int, words: int, n_in: int,
     if learn:
         popc += fired * words
         ints += fired * words * SU_OPS
-    t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = max(ints / rates.int32_per_s, popc / rates.popc_per_s)
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    return roofline(rates, moved, ints, popc)
 
 
 def train_operands(shape: str, dev: torch.device) -> dict:
@@ -678,19 +705,23 @@ def phase_train():
     return launches, card
 
 
-def phase_train_trace(x, labels) -> None:
+def phase_train_trace(x, labels, cycle_backend: str = "window") -> None:
     """Where a training run's time goes: one parallel-mode epoch of
-    ``x`` under ``torch.profiler`` (card busy share of the wall time,
-    kernel time by name, the host's heaviest operations), then the
-    per-presentation time split."""
+    ``x`` on one cycle path (the window path with in-kernel encode, or
+    the step path with host encode) under ``torch.profiler``: the card's
+    busy share of the wall time, kernel time by name, and the host's
+    heaviest operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.wenquxing_snn import WENQUXING_22A_INTENSITY
+    from repro_torch.configs.wenquxing_snn import (WENQUXING_22A,
+                                                   WENQUXING_22A_INTENSITY)
     from repro_torch.core.trainer import train
 
-    cfg = dataclasses.replace(WENQUXING_22A_INTENSITY, epochs=1,
-                              train_mode="parallel")
+    base = (WENQUXING_22A_INTENSITY if cycle_backend == "window"
+            else WENQUXING_22A)
+    cfg = dataclasses.replace(base, epochs=1, train_mode="parallel",
+                              cycle_backend=cycle_backend)
     dev = torch.device("cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -701,7 +732,8 @@ def phase_train_trace(x, labels) -> None:
     rows = prof.key_averages()
     devs = [e for e in rows if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in devs)
-    print(f"train trace (torch.profiler, parallel, {len(x)} samples): "
+    print(f"train trace (torch.profiler, parallel, {cycle_backend} path, "
+          f"{len(x)} samples): "
           f"wall {wall_us} us, card busy {dev_us} us = "
           f"{dev_us / wall_us if wall_us else 0} of the wall time; device "
           f"work: " + "; ".join(
@@ -710,9 +742,367 @@ def phase_train_trace(x, labels) -> None:
                               -e.self_device_time_total)[:6]), flush=True)
     host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
-    print("train trace: host heaviest: " + "; ".join(
+    print(f"train trace ({cycle_backend} path): host heaviest: " + "; ".join(
         f"{e.key} {e.count}x {e.self_cpu_time_total} us"
         for e in host[:8]), flush=True)
+    if cycle_backend == "step":
+        # the host's time by Python function: one launch per cycle
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        prof.enable()
+        train(cfg, x, labels, device=dev)
+        torch.cuda.synchronize()
+        prof.disable()
+        stats = pstats.Stats(prof)
+        funcs = sorted(((tt, ct, n, f"{Path(fn).name}:{name}")
+                        for (fn, _, name), (_, n, tt, ct, _)
+                        in stats.stats.items()), reverse=True)
+        print(f"train trace (cProfile, step path): {stats.total_tt} s; own "
+              f"s (cumulative s) x calls by function: " + "; ".join(
+                  f"{name} {tt} ({ct}) x{n}" for tt, ct, n, name
+                  in funcs[:14]), flush=True)
+
+
+# --- the per-cycle RV-SNN step kernels and the step slice -------------------
+
+STEP_KERNELS = ("fused_snn_step", "spike_process", "lif_step", "stdp_update")
+STEP_SYMBOLS = {"fused_snn_step": "fused_step_kernel",
+                "spike_process": "spike_process_kernel",
+                "lif_step": "lif_kernel", "stdp_update": "stdp_kernel"}
+
+
+def step_bound(rates: Rates, kname: str, *, b: int, n: int, words: int,
+               banks: int, fired: int, train: bool = True
+               ) -> tuple[float, str]:
+    """Least time (s) of one step-kernel launch over ``b`` streams of
+    ``n`` neurons against ``banks`` weight banks (1 when shared): each
+    input and output crosses HBM once, against this call's integer work:
+    SPU popcounts per (stream, neuron, word), LIF per (stream, neuron),
+    and the STDP pass over the words of each of the ``fired`` rows."""
+    bank, out_bank = banks * n * words * 4, b * n * words * 4
+    neurons, pre = b * n, b * words * 4
+    spu_ints, spu_popc = 2 * neurons * words, neurons * words
+    # weights and LFSR in, weights' and LFSR' out, ltp_prob
+    su_bytes = 2 * bank + 2 * out_bank + 4 * b
+    su_ints, su_popc = fired * words * SU_OPS, fired * words
+    if kname == "spike_process":
+        return roofline(rates, bank + pre + 4 * neurons, spu_ints, spu_popc)
+    if kname == "lif_step":          # v, count in; v', fired out
+        return roofline(rates, 13 * neurons, LIF_OPS * neurons, 0)
+    if kname == "stdp_update":
+        return roofline(rates, su_bytes + pre + neurons, su_ints, su_popc)
+    # fused: v, teach in; v', fired out
+    moved = (su_bytes if train else bank) + pre + 13 * neurons
+    ints = spu_ints + neurons * (LIF_OPS + 1) + (su_ints if train else 0)
+    return roofline(rates, moved, ints, spu_popc + (su_popc if train else 0))
+
+
+def step_operands(shape: str, dev: torch.device) -> dict:
+    """Inputs of the step kernels at one of phase 3's shapes: one cycle
+    of the trainer's parallel launch ("step-parallel", B = 4 streams of
+    10 neurons) and of its active launch ("step-active", one stream),
+    one serving-width inference cycle ("step-infer", B = 32 samples, 40
+    neurons, one shared bank, SU idle), a synthetic "large" one (1,000
+    neurons of 65,536 inputs) and the quickstart's (n = 40, w = 25).
+    Membranes start below the threshold so that some rows fire."""
+    from repro_torch.core.bitpack import as_words
+    from repro_torch.core.encoder import (encode_windows_host,
+                                          quantize_intensities,
+                                          sample_seeds)
+    from repro_torch.core.rvsnn import snn_regfile
+    from repro_torch.core.stdp import init_weights
+    from repro_torch.launch import quickstart
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    rng = np.random.default_rng(0x57E9)
+    if shape == "quickstart":
+        w, pre, v, lanes, teach = quickstart.step_operands(dev)
+        kw = dict(quickstart.STEP_PARAMS)
+        ltp = torch.tensor([kw.pop("ltp_prob")], dtype=torch.int32,
+                           device=dev)
+        return dict(weights=w, pre=pre, v=v, lfsr=lanes, teach=teach,
+                    ltp=ltp, kw=kw, b=1, n=w.shape[0], words=w.shape[1],
+                    banks=1, train=True)
+    if shape == "step-infer":
+        b, n, words = 32, 40, 25
+        weights = init_weights(n, words, dense=False, device=dev)
+        x, _ = preprocessed_digits(b, seed=5)
+        wins = encode_windows_host(sample_seeds(0x22A, b, device=dev),
+                                   quantize_intensities(x).to(dev), 72,
+                                   words)
+        v = torch.from_numpy(rng.integers(0, 192, (b, n)).astype(np.int32))
+        return dict(weights=weights, pre=wins[:, 36].contiguous(),
+                    v=v.to(dev), lfsr=snn_regfile(weights).lfsr,
+                    teach=None, ltp=torch.zeros(b, dtype=torch.int32,
+                                                device=dev),
+                    kw=dict(threshold=192, leak=16, w_exp=0, gain=0,
+                            n_syn=1),
+                    b=b, n=n, words=words, banks=1, train=False)
+    o = train_operands({"step-parallel": "train-parallel",
+                        "step-active": "train-active",
+                        "large": "large"}[shape], dev)
+    thr = o["kw"]["threshold"]
+    lo = thr - 8000 if shape == "large" else 0
+    v = torch.from_numpy(rng.integers(lo, thr, (o["b"], o["n"]))
+                         .astype(np.int32)).to(dev)
+    ops_in = dict(weights=o["weights"], pre=o["wins"][:, 0].contiguous(),
+                  v=v, lfsr=o["lfsr"], teach=o["teach"], ltp=o["ltp"])
+    b = o["b"]
+    if shape != "step-parallel":     # one stream: the unbatched operands
+        ops_in = {k: t[0] for k, t in ops_in.items()}
+        ops_in["ltp"] = o["ltp"][:1]
+        b = 1
+    return dict(ops_in, kw=o["kw"], b=b, n=o["n"], words=o["words"],
+                banks=b, train=True)
+
+
+def phase_step_kernels(rates: Rates) -> dict:
+    """Phase 3, the per-cycle RV-SNN step kernels against their plain
+    versions, and the unfused SPU -> NU -> SU chain against the fused
+    step."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    out = {}
+    for shape in ("step-parallel", "step-active", "step-infer", "large",
+                  "quickstart"):
+        o = step_operands(shape, dev)
+        w, pre, v, lanes, teach, ltp = (o[k] for k in (
+            "weights", "pre", "v", "lfsr", "teach", "ltp"))
+        kw, train = o["kw"], o["train"]
+        su = {k: kw[k] for k in ("w_exp", "gain", "n_syn")}
+        reps, plain_reps = (20, 3) if shape == "large" else (200, 5)
+        what = (f"{shape} (B={o['b']}, n={o['n']}, w={o['words']}, "
+                f"{'shared bank, ' if o['banks'] < o['b'] else ''}"
+                f"train={train})")
+        state = {}      # the chain's kernel outputs: SPU counts, NU fired
+
+        # in chain order: SPU, NU, SU, then the fused step
+        calls = {}
+        if shape != "quickstart":
+            calls["spike_process"] = lambda be: ops.spike_process(
+                pre, w, backend=be)
+            calls["lif_step"] = lambda be: ops.lif_step(
+                v, state["count"], kw["threshold"], kw["leak"], backend=be)
+            if train:
+                calls["stdp_update"] = lambda be: ops.stdp_update(
+                    w, pre, state["fired"], lanes, ltp_prob=ltp,
+                    backend=be, **su)
+        calls["fused_snn_step"] = lambda be: ops.fused_snn_step(
+            w, pre, v, lanes, teach, ltp_prob=ltp, train=train, backend=be,
+            **kw)
+
+        def bound_of(kname, o=o, train=train, state=state):
+            def of(outputs):
+                fired = (int(outputs[2].sum()) if kname == "fused_snn_step"
+                         else int(state["fired"].sum())
+                         if kname == "stdp_update" else 0)
+                return step_bound(rates, kname, b=o["b"], n=o["n"],
+                                  words=o["words"], banks=o["banks"],
+                                  fired=fired, train=train)
+            return of
+
+        got = {}
+        for kname, call in calls.items():
+            out[(kname, shape)], got[kname] = hold_and_time(
+                kname, what, call, STEP_SYMBOLS[kname], reps, plain_reps,
+                bound_of(kname))
+            if kname == "spike_process":
+                counts = got[kname][0]
+                state["count"] = counts if teach is None else counts + teach
+            elif kname == "lif_step":
+                state["fired"] = got[kname][1]
+        fused = got["fused_snn_step"]
+        if "lif_step" in got:
+            chain = (got["stdp_update"][0] if train else w,
+                     got["lif_step"][0], got["lif_step"][1],
+                     got["stdp_update"][1] if train else lanes)
+            for i, (a, c) in enumerate(zip(fused, chain)):
+                if not torch.equal(a, c):
+                    fail(f"the unfused SPU -> NU -> SU chain differs from "
+                         f"fused_snn_step at {shape} (output {i})")
+        print(f"step kernels @ {shape}: fired rows {int(fused[2].sum())}"
+              + ("; unfused chain == fused step" if "lif_step" in got
+                 else ""), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def counting_plain_versions():
+    """Counts, by name, every call of a plain version
+    (``repro_torch.kernels.ref``) made while the block runs."""
+    from repro_torch.kernels import ref
+
+    calls = collections.Counter()
+    saved = {name: fn for name, fn in vars(ref).items()
+             if name.endswith("_ref") and callable(fn)}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ref, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+
+def step_slice_runs(cycle_backend: str, x, labels, test_windows) -> dict:
+    """One epoch of ``WENQUXING_22A`` (784-40, T = 72, host encode) on
+    the card in each train mode on one cycle path, then the model's
+    predictions on ``test_windows``: each run's model, wall time,
+    predictions, and the launches of training and of the predictions."""
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A
+    from repro_torch.core.trainer import classify, train
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(WENQUXING_22A, epochs=1,
+                              cycle_backend=cycle_backend)
+    runs = {}
+    for mode in ("parallel", "active"):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        model = train(dataclasses.replace(cfg, train_mode=mode), x, labels,
+                      device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trained = ops.launch_counts()
+        pred = classify(model, test_windows)
+        after = ops.launch_counts()
+        runs[mode] = dict(
+            model=model, wall=wall, pred=pred,
+            trained={k: trained[k] - before[k] for k in trained},
+            classify={k: after[k] - trained[k] for k in after})
+    return runs
+
+
+def rvsnn_program(model, window: torch.Tensor, label: int) -> int:
+    """One presentation of ``window`` to the trained 784-40 population
+    through the RV-SNN instructions one at a time (``snn.ls``, ``snn.sp``
+    + teach, ``snn.nu``, ``snn.su``: three kernel launches a cycle), and
+    through ``snn.step`` (one launch a cycle); fails unless the register
+    files and rasters are equal.  Returns the rows fired."""
+    from repro_torch.core import rvsnn
+
+    cfg = model.cfg
+    teach = torch.where(model.neuron_class == label, cfg.teach_pos,
+                        cfg.teach_neg).to(torch.int32)
+    lif, su = cfg.lif(), cfg.stdp()
+    fine = fused = rvsnn.snn_regfile(model.weights, seed=0x22A)
+    total = 0
+    for t, words in enumerate(window):
+        fine = rvsnn.snn_ls(fine, words)
+        fine, fired = rvsnn.snn_nu(fine, rvsnn.snn_sp(fine) + teach, lif)
+        fine = rvsnn.snn_su(fine, fired, su)
+        fused, fired_fused = rvsnn.snn_step(fused, words, lif, su, teach)
+        if not torch.equal(fired, fired_fused):
+            fail(f"snn.sp/nu/su and snn.step fire differently at cycle {t}")
+        total += int(fired.sum())
+    for name, a, b in zip(fine._fields, fine, fused):
+        if not torch.equal(a, b):
+            fail(f"snn.sp/nu/su and snn.step leave different {name}")
+    return total
+
+
+def phase_step_slice() -> dict:
+    """Phase 7: the step slice at full width on the card.  The window
+    path's runs come first, outside the counted run; then, with the
+    launch counts set to 0 and every plain version watched, the step
+    path's runs and one RV-SNN program.  The step path must equal the
+    window path bit for bit, launch ``fused_snn_step`` 72 times per
+    presentation and per classification, and reach no plain version."""
+    from repro_torch.core.encoder import poisson_encode_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    n_train, n_test, t_steps, n_classes, n_blocks = 256, 200, 72, 10, 4
+    x, labels = preprocessed_digits(n_train, seed=1)
+    tx, tlabels = preprocessed_digits(n_test, seed=2)
+    tst = poisson_encode_batch(torch.Generator().manual_seed(99),
+                               torch.from_numpy(tx), t_steps).cuda()
+    window = step_slice_runs("window", x, labels, tst)
+    ops.reset_launch_counts()
+    with counting_plain_versions() as plain:
+        step = step_slice_runs("step", x, labels, tst)
+        before = ops.launch_counts()
+        program_fired = rvsnn_program(step["parallel"]["model"], tst[0],
+                                      int(tlabels[0]))
+        program = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    launches = ops.launch_counts()
+    if sum(plain.values()):
+        fail(f"the step slice reached plain versions: {dict(plain)}")
+
+    def only(counts: dict, **want) -> bool:
+        """Whether exactly the kernels in ``want`` launched, as often."""
+        return {k: v for k, v in counts.items() if v} == want
+
+    if not only(program, fused_snn_step=t_steps, spike_process=t_steps,
+                lif_step=t_steps, stdp_update=t_steps):
+        fail(f"the RV-SNN program launched {program}")
+
+    for mode in ("parallel", "active"):
+        s, w = step[mode], window[mode]
+        if not (torch.equal(s["model"].weights, w["model"].weights)
+                and torch.equal(s["model"].neuron_class,
+                                w["model"].neuron_class)
+                and torch.equal(s["pred"], w["pred"])):
+            fail(f"{mode}: the step path's weights, class map or test "
+                 f"predictions differ from the window path's")
+        presented = w["trained"]["train_window_batch"]
+        classified = w["trained"]["infer_window_batch"]
+        blocks = s["model"].weights.shape[0] // n_classes
+        want_cls = (0 if mode == "parallel" else
+                    blocks if blocks < n_blocks else n_blocks - 1)
+        if not presented or classified != want_cls:
+            fail(f"{mode}: the window run presented {presented} samples "
+                 f"and classified {classified} times ({w['trained']})")
+        if not only(s["trained"], fused_snn_step=t_steps * (presented
+                                                            + classified)):
+            fail(f"{mode}: step training launched {s['trained']} for "
+                 f"{presented} presentations and {classified} "
+                 f"classifications of {t_steps} cycles")
+        if not (only(s["classify"], fused_snn_step=t_steps)
+                and only(w["classify"], infer_window_batch=1)):
+            fail(f"{mode}: test predictions launched {s['classify']} "
+                 f"(step) and {w['classify']} (window)")
+        acc = float((s["pred"].cpu().numpy() == tlabels).mean())
+        ms = {k: 1e3 * r[mode]["wall"] / presented
+              for k, r in (("step", step), ("window", window))}
+        print(f"step slice {mode}: {n_train} samples x 1 epoch, {presented}"
+              f" presentations ({blocks} blocks); step path {s['wall']} s ="
+              f" {n_train / s['wall']} samples/s, {ms['step']} ms per "
+              f"presentation, {s['trained']['fused_snn_step']} fused step "
+              f"launches; window path {w['wall']} s = "
+              f"{n_train / w['wall']} samples/s, {ms['window']} ms per "
+              f"presentation, {presented + classified} window launches; "
+              f"step/window {ms['step'] / ms['window']}; test accuracy "
+              f"{acc}; equal: weights, class map, predictions", flush=True)
+    print(f"step slice: launches {launches}; RV-SNN program "
+          f"(sp/nu/su vs step, one presentation) equal, {program_fired} "
+          f"(row, cycle) pairs fired; plain versions reached: 0",
+          flush=True)
+    return launches
+
+
+def phase_quickstart() -> None:
+    """The quickstart launcher on the card, in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.quickstart"],
+        capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        print(f"quickstart: {line}", flush=True)
+    if proc.returncode != 0 or not re.search(
+            r"bit-exact .*: True$", proc.stdout, re.MULTILINE):
+        fail(f"quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
 
 
 def main() -> None:
@@ -734,7 +1124,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ops.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for source in ("snn_infer", "snn_train"):
+    for source in ("snn_infer", "snn_train", "snn_step"):
         log = build.library_path(source).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -748,6 +1138,7 @@ def main() -> None:
           flush=True)
     timings = phase_kernels(rates)
     timings.update(phase_train_kernels(rates))
+    timings.update(phase_step_kernels(rates))
 
     # phase 4: the serving slice
     serve_launches, eng = phase_slice()
@@ -759,6 +1150,12 @@ def main() -> None:
     train_launches, _ = phase_train()
     from repro_torch.launch.mnist_stdp import preprocessed_digits
     phase_train_trace(*preprocessed_digits(64, seed=3))
+
+    # phase 7: the step slice (one fused step launch per cycle), and the
+    # quickstart
+    step_launches = phase_step_slice()
+    phase_train_trace(*preprocessed_digits(16, seed=3), "step")
+    phase_quickstart()
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -793,6 +1190,22 @@ def main() -> None:
         if launches is serve_launches:
             entry["train_launches"] = train_launches[kname]
         kernels.append(entry)
+    for kname, line in zip(STEP_KERNELS, (295, 160, 189, 244)):
+        shapes = {shape: t for (k, shape), t in timings.items()
+                  if k == kname}
+        main_t = shapes["step-parallel"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": STEP_SOURCE,
+            "replaces": f"{PALLAS}:{line}",
+            "launches": step_launches[kname],
+            "max_abs_err": max(t["max_abs_err"] for t in shapes.values()),
+            "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+            "library_ms": None, "shape": "step-parallel",
+            "call_ms": main_t["call_ms"],
+            **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
+                                         "bound_ms", "bound_by")}
+               for shape, t in shapes.items() if shape != "step-parallel"}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

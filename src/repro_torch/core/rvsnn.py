@@ -10,9 +10,17 @@ over an :class:`SnnRegFile`, with the hardware's operand granularity:
   ``snn.su``    SU    single-pass LTP + LTD row update (LFSR register)
   ``snn.step``  SNNU  fused sp + nu + su for the whole population
 
-The architectural reference of the window kernels; bit-exact with
-``repro.core.rvsnn``.  Words are int32 bit patterns, LFSR lanes 16-bit
-values in int32.
+Each instruction runs its own kernel (``kernels/ops.py``): ``snn.sp``
+the SPU kernel, ``snn.nu`` the NU kernel, ``snn.su`` the SU kernel, and
+``snn.step`` ONE launch of the fused SNNU kernel, not the three.  With
+``backend="kernel"`` (the default) a register file on a CUDA card
+launches the CUDA kernel and one on the CPU runs its plain version;
+``backend="ref"`` runs the plain version anywhere.  A register file may
+carry a leading stream axis on every field, and the weight bank and
+LFSR may lack it (one bank shared by every stream, e.g. B samples
+served against one bank): one launch then covers all streams.  Bit-exact
+with ``repro.core.rvsnn``.  Words are int32 bit patterns, LFSR lanes
+16-bit values in int32.
 """
 
 from __future__ import annotations
@@ -22,9 +30,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import lfsr as _lfsr
-from repro_torch.core.bitpack import popcount
-from repro_torch.core.lif import LIFParams, lif_step
-from repro_torch.core.stdp import STDPParams, stdp_update
+from repro_torch.core.lif import LIFParams
+from repro_torch.core.stdp import STDPParams
+from repro_torch.kernels import ops
+
+# The SU's operands when it is idle (inference): no kernel reads them.
+_SU_IDLE = STDPParams(w_exp=0, gain=0, n_syn=1, ltp_prob=0)
 
 
 class SnnRegFile(NamedTuple):
@@ -78,41 +89,46 @@ def snn_ls(rf: SnnRegFile, spike_words: torch.Tensor) -> SnnRegFile:
     return rf._replace(spike=spike_words.to(torch.int32))
 
 
-def snn_sp(rf: SnnRegFile) -> torch.Tensor:
+def snn_sp(rf: SnnRegFile, backend: str = "kernel") -> torch.Tensor:
     """``snn.sp``: valid-spike counts, popcount(spike & weights) per row."""
-    return popcount(rf.spike[..., None, :] & rf.weights)
+    return ops.spike_process(rf.spike, rf.weights, backend=backend)
 
 
-def snn_nu(rf: SnnRegFile, counts: torch.Tensor, p: LIFParams
-           ) -> tuple[SnnRegFile, torch.Tensor]:
+def snn_nu(rf: SnnRegFile, counts: torch.Tensor, p: LIFParams,
+           backend: str = "kernel") -> tuple[SnnRegFile, torch.Tensor]:
     """``snn.nu``: streamlined-LIF membrane update; returns the fired
     mask."""
-    v_next, fired = lif_step(rf.v, counts, p)
+    v_next, fired = ops.lif_step(rf.v, counts, p.threshold, p.leak,
+                                 backend=backend)
     return rf._replace(v=v_next), fired
 
 
-def snn_su(rf: SnnRegFile, fired: torch.Tensor, p: STDPParams
-           ) -> SnnRegFile:
-    """``snn.su``: binary stochastic STDP row update on post-spikes."""
-    w_out, lf_out = stdp_update(rf.weights, rf.spike, fired, rf.lfsr, p)
+def snn_su(rf: SnnRegFile, fired: torch.Tensor, p: STDPParams,
+           backend: str = "kernel") -> SnnRegFile:
+    """``snn.su``: binary stochastic STDP row update on post-spikes
+    (``p.ltp_prob`` may be one value per stream)."""
+    w_out, lf_out = ops.stdp_update(
+        rf.weights, rf.spike, fired, rf.lfsr, w_exp=p.w_exp, gain=p.gain,
+        n_syn=p.n_syn, ltp_prob=p.ltp_prob, backend=backend)
     return rf._replace(weights=w_out, lfsr=lf_out)
 
 
 def snn_step(rf: SnnRegFile, spike_words: torch.Tensor, lif: LIFParams,
              stdp: STDPParams | None,
-             teach: torch.Tensor | None = None
+             teach: torch.Tensor | None = None, backend: str = "kernel"
              ) -> tuple[SnnRegFile, torch.Tensor]:
-    """``snn.step``: one fused SNNU cycle for the whole population.
+    """``snn.step``: one fused SNNU cycle for the whole population, in
+    one kernel launch.
 
-    spike_words int32[w] this cycle's packed input spikes; ``teach``
-    optional int32[n] teacher current added on the NU adder; ``stdp``
-    None leaves the SU idle.  Returns (rf', fired bool[n]).
+    spike_words int32[w] (or [B, w]) this cycle's packed input spikes;
+    ``teach`` optional int32[n] (or [B, n]) teacher current added on the
+    NU adder; ``stdp`` None leaves the SU idle (weights and LFSR pass
+    through).  Returns (rf', fired bool[n] or [B, n]).
     """
     rf = snn_ls(rf, spike_words)
-    counts = snn_sp(rf)
-    if teach is not None:
-        counts = counts + teach
-    rf, fired = snn_nu(rf, counts, lif)
-    if stdp is not None:
-        rf = snn_su(rf, fired, stdp)
-    return rf, fired
+    su = _SU_IDLE if stdp is None else stdp
+    w2, v2, fired, lf2 = ops.fused_snn_step(
+        rf.weights, rf.spike, rf.v, rf.lfsr, teach, threshold=lif.threshold,
+        leak=lif.leak, w_exp=su.w_exp, gain=su.gain, n_syn=su.n_syn,
+        ltp_prob=su.ltp_prob, train=stdp is not None, backend=backend)
+    return rf._replace(weights=w2, v=v2, lfsr=lf2), fired

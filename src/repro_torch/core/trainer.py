@@ -22,6 +22,10 @@ has fresh draws); ``"host"`` pre-encodes the set into packed windows
 with a ``torch.Generator`` (statistically, not bit for bit, the JAX
 package's encode).
 
+``cycle_backend="step"`` runs every presentation (and every
+classification) cycle by cycle, one fused RV-SNN step launch per cycle,
+instead of one window launch; the two are bit-exact.
+
 Randomness is explicit: :func:`train` takes the per-block LFSR base
 seeds (``block_seeds``) or draws them from a CPU generator seeded from
 ``cfg.seed``.  Everything runs on the device the caller names (``cuda``
@@ -64,6 +68,7 @@ class SNNTrainConfig:
     teach_neg: int = -1024       # inhibition into the others
     epochs: int = 2
     seed: int = 0x22A
+    cycle_backend: str = "window"    # "window" | "step" (per-cycle)
     kernel_backend: str = "kernel"   # "kernel" | "ref"
     train_mode: str = "active"       # "active" | "parallel"
     window_chunk: int | None = None  # accepted; the kernels stream T

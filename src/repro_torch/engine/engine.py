@@ -12,6 +12,14 @@
     B independent training streams in one launch, with an optional
     per-stream ``ltp_prob``.
 
+Those are the window path (``cycle_backend="window"``).  On the step
+path (``"step"``) each verb instead runs the window cycle by cycle, a
+Python loop of ``rvsnn.snn_step`` (the JAX package's ``lax.scan``, under
+``vmap`` for the batched verbs): one fused RV-SNN step launch per cycle
+for every stream of the call, T launches per window.  ``infer`` runs its
+B samples against the one bank (stream stride 0, never copied B times).
+The two paths are bit-exact with each other.
+
 The module-level :func:`train_stream` / :func:`train_stream_batch`
 compose the verbs over a stream of samples (membrane reset between
 samples), one launch per presented sample, with the register file kept
@@ -32,7 +40,9 @@ import torch
 from repro_torch.core.bitpack import as_words
 from repro_torch.core.encoder import (encode_from_counter_batch,
                                       encode_windows_host)
-from repro_torch.core.rvsnn import SnnRegFile, snn_regfile_batch
+from repro_torch.core.rvsnn import (SnnRegFile, snn_regfile,
+                                    snn_regfile_batch, snn_step)
+from repro_torch.core.stdp import STDPParams
 from repro_torch.engine.plan import SNNEnginePlan
 from repro_torch.kernels import ops
 
@@ -145,12 +155,44 @@ class SNNEngine:
                     backend=p.kernel_backend)
             windows = encode_windows_host(sd, inten, n_steps, w.shape[1],
                                           t_total)
+        windows = as_words(windows, self.device)
+        if p.cycle_backend == "step":
+            b, n = windows.shape[0], w.shape[0]
+            rf = snn_regfile(w)._replace(
+                v=torch.zeros((b, n), dtype=torch.int32, device=w.device))
+            _, fired = self._steps(rf, windows.transpose(0, 1).contiguous(),
+                                   None, None)
+            return fired.sum(dim=0, dtype=torch.int32)
         return ops.infer_window_batch(
-            w, as_words(windows, self.device),
-            threshold=p.threshold, leak=p.leak, t_chunk=p.t_chunk,
-            backend=p.kernel_backend)
+            w, windows, threshold=p.threshold, leak=p.leak,
+            t_chunk=p.t_chunk, backend=p.kernel_backend)
 
     # --- train -----------------------------------------------------------
+
+    def _steps(self, rf: SnnRegFile, windows: torch.Tensor, teach,
+               stdp: STDPParams | None) -> tuple[SnnRegFile, torch.Tensor]:
+        """The step path: one ``snn.step`` launch per cycle of
+        ``windows`` (cycle-major: [T, w] for one stream, [T, B, w] for
+        the B streams of ``rf``), SU idle when ``stdp`` is None.
+        Returns (rf', fired bool[T, ..., n]); T = 0 launches nothing and
+        returns ``rf`` as it is."""
+        lif = self.plan.lif()
+        rasters = []
+        for words in windows:
+            rf, fired = snn_step(rf, words, lif, stdp, teach,
+                                 backend=self.plan.kernel_backend)
+            rasters.append(fired)
+        if not rasters:
+            return rf, torch.zeros((0,) + rf.v.shape, dtype=torch.bool,
+                                   device=rf.v.device)
+        return rf, torch.stack(rasters)
+
+    def _stdp(self, ltp_prob) -> STDPParams | None:
+        """The step path's SU operands, with ``ltp_prob`` (one value per
+        stream, on the device); None for an inference-only plan."""
+        p = self.plan
+        return (STDPParams(p.w_exp, p.gain, p.n_syn, ltp_prob) if p.learn
+                else None)
 
     def _window(self, rf: SnnRegFile, teach: torch.Tensor, *, window=None,
                 intensities=None, seed=None, n_steps=None):
@@ -170,6 +212,10 @@ class SNNEngine:
         if window is None:
             window = encode_windows_host(seed, intensities[None], n_steps,
                                          rf.weights.shape[1])[0]
+        if p.cycle_backend == "step":
+            out, fired = self._steps(rf, window, teach,
+                                     self._stdp(kw.get("ltp_prob")))
+            return out.weights, out.v, fired, out.lfsr
         return ops.fused_snn_window(rf.weights, window, rf.v, rf.lfsr,
                                     teach, **kw)
 
@@ -200,7 +246,7 @@ class SNNEngine:
         else:
             window = as_words(window, self.device)
             w2, v2, fired, lf2 = self._window(rf, teach, window=window)
-            spike = window[-1]
+            spike = window[-1] if len(window) else rf.spike
         rf_out = rf._replace(weights=w2, v=v2, lfsr=lf2, spike=spike)
         return SNNOutput(rf_out, fired.sum(dim=0, dtype=torch.int32), fired)
 
@@ -223,6 +269,11 @@ class SNNEngine:
         if windows is None:
             windows = encode_windows_host(seeds, intensities, n_steps,
                                           rfs.weights.shape[2])
+        if p.cycle_backend == "step":
+            out, fired = self._steps(rfs, windows.transpose(0, 1)
+                                     .contiguous(), teach,
+                                     self._stdp(ltp_prob))
+            return out.weights, out.v, fired.transpose(0, 1), out.lfsr
         return ops.train_window_batch(rfs.weights, windows, rfs.v,
                                       rfs.lfsr, teach, **kw)
 
@@ -266,7 +317,7 @@ class SNNEngine:
             windows = as_words(windows, self.device)
             w2, v2, fired, lf2 = self._window_batch(rfs, teach, lp,
                                                     windows=windows)
-            spike = windows[:, -1]
+            spike = windows[:, -1] if windows.shape[1] else rfs.spike
         rfs_out = rfs._replace(weights=w2, v=v2, lfsr=lf2, spike=spike)
         return rfs_out, fired.sum(dim=1, dtype=torch.int32), fired
 

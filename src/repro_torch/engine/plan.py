@@ -1,8 +1,9 @@
 """The frozen execution plan of the SNN engine.
 
 An :class:`SNNEnginePlan` holds every decision the engine dispatches
-on: LIF/STDP parameters, the kernel backend, where the Poisson encode
-runs, and the serving batch size.  Plans are frozen dataclasses of
+on: LIF/STDP parameters, the cycle path (one window kernel per
+presentation, or one fused RV-SNN step kernel per cycle), the kernel
+backend, where the Poisson encode runs, and the serving batch size.  Plans are frozen dataclasses of
 plain Python scalars; the kernels take them as plain ``int``
 arguments, while per-stream operands (seeds, ``ltp_prob``, teach) are
 tensors.
@@ -15,6 +16,7 @@ import dataclasses
 from repro_torch.core.lif import LIFParams, lif_params
 from repro_torch.core.stdp import STDPParams, stdp_params
 
+_CYCLE_BACKENDS = ("window", "step")
 _KERNEL_BACKENDS = ("kernel", "ref")
 _ENCODE_BACKENDS = ("host", "kernel")
 
@@ -24,6 +26,9 @@ class SNNEnginePlan:
     """Everything the engine needs to dispatch SNN work.
 
     ``w_exp=None`` marks an inference-only plan (SU idle).
+    ``cycle_backend="window"`` presents a window in one window-kernel
+    launch; ``"step"`` runs it cycle by cycle, one fused ``snn.step``
+    launch per cycle (for every stream of the call at once).
     ``kernel_backend="kernel"`` runs the CUDA kernels on a card and their
     plain versions on the CPU; ``"ref"`` runs the plain versions on any
     device (serving takes it only on the CPU).
@@ -36,6 +41,7 @@ class SNNEnginePlan:
     n_syn: int = 784
     ltp_prob: int = 16
     # --- dispatch -------------------------------------------------------
+    cycle_backend: str = "window"    # "window" | "step"
     kernel_backend: str = "kernel"   # "kernel" | "ref"
     t_chunk: int | None = None       # window-length quantum in serving
     # --- encoding -------------------------------------------------------
@@ -49,6 +55,10 @@ class SNNEnginePlan:
     max_batch: int = 8               # serving admission cap per launch
 
     def __post_init__(self):
+        if self.cycle_backend not in _CYCLE_BACKENDS:
+            raise ValueError(f"cycle_backend must be one of "
+                             f"{_CYCLE_BACKENDS}, got "
+                             f"{self.cycle_backend!r}")
         if self.kernel_backend not in _KERNEL_BACKENDS:
             raise ValueError(f"kernel_backend must be one of "
                              f"{_KERNEL_BACKENDS}, got "
@@ -56,6 +66,9 @@ class SNNEnginePlan:
         if self.encode not in _ENCODE_BACKENDS:
             raise ValueError(f"encode must be one of {_ENCODE_BACKENDS}, "
                              f"got {self.encode!r}")
+        if self.encode == "kernel" and self.cycle_backend != "window":
+            raise ValueError("in-kernel encode requires the window "
+                             "path; use cycle_backend='window'")
         if self.t_chunk is not None and self.t_chunk < 1:
             raise ValueError(f"t_chunk must be >= 1, got {self.t_chunk}")
         if self.max_batch < 1:
@@ -101,5 +114,6 @@ def plan_from_config(cfg, block_idx: int = 0) -> SNNEnginePlan:
     return SNNEnginePlan(
         threshold=cfg.threshold, leak=cfg.leak, w_exp=cfg.w_exp,
         gain=cfg.gain, n_syn=cfg.n_inputs, ltp_prob=lp,
+        cycle_backend=cfg.cycle_backend,
         kernel_backend=cfg.kernel_backend, t_chunk=cfg.window_chunk,
         encode=cfg.encode, encode_seed=cfg.encode_seed)

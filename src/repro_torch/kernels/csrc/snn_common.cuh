@@ -1,7 +1,7 @@
-// Device code shared by the SNN window kernels (snn_infer.cu,
-// snn_train.cu): the counter-hash spike draw, the streamlined LIF update,
-// the binary stochastic STDP arithmetic, a warp sum, and the launch
-// helpers that fit a block's shared memory.
+// Device code shared by the SNN kernels (snn_infer.cu, snn_train.cu,
+// snn_step.cu): the counter-hash spike draw, the streamlined LIF update,
+// the binary stochastic STDP arithmetic and its row update, a warp sum,
+// and the launch helpers that fit a block's shared memory.
 //
 // All packed words are u32 bit patterns (the port holds them as int32
 // tensors).  Integer arithmetic that the JAX package does in wrapping
@@ -107,6 +107,34 @@ __device__ __forceinline__ uint32_t ltd_prob(int pc, int w_exp, int gain,
   const int32_t excess =
       static_cast<int32_t>(d * static_cast<uint32_t>(gain) * 1024u) / n_syn;
   return static_cast<uint32_t>(min(max(excess, 0), 1023));
+}
+
+// Binary stochastic STDP on one fired row, by the warp that owns it
+// (lanes stride the W words).  Reads the row's weights w and LFSR lanes
+// st; writes w_out and st_out, which may be w and st themselves.  Per
+// word: s1, s2 = two LFSR steps; LTP w |= pre when (s1 & 0x3FF) <=
+// ltp_prob (u32 compare); the lane keeps s2.  Then, with pc the
+// popcount of the whole LTP'd row, LTD w &= pre when (s2 & 0x3FF) <=
+// ltd_prob(pc).
+__device__ __forceinline__ void stdp_row(const uint32_t* w,
+                                         const uint32_t* st,
+                                         uint32_t* w_out, uint32_t* st_out,
+                                         const uint32_t* pre, int W,
+                                         int lane, uint32_t ltp_prob,
+                                         int w_exp, int gain, int n_syn) {
+  int pc = 0;
+  for (int k = lane; k < W; k += 32) {
+    const uint32_t s1 = lfsr_step(st[k]);
+    const uint32_t s2 = lfsr_step(s1);
+    uint32_t word = w[k];
+    if ((s1 & 0x3FFu) <= ltp_prob) word |= pre[k];
+    w_out[k] = word;
+    st_out[k] = s2;
+    pc += __popc(word);
+  }
+  const uint32_t prob = ltd_prob(warp_sum(pc), w_exp, gain, n_syn);
+  for (int k = lane; k < W; k += 32)
+    if ((st_out[k] & 0x3FFu) <= prob) w_out[k] &= pre[k];
 }
 
 // The shared memory one block may opt into on the current device.

@@ -1,0 +1,265 @@
+// Per-cycle kernels of the Wenquxing 22A SNN for Hopper (sm_90a): the
+// RV-SNN V1.0 instructions, one launch per instruction and cycle.
+//
+// Replaces four Pallas TPU kernels of src/repro/kernels/snn_kernels.py:
+//   spike_process_kernel  <- spike_process (_spike_process_kernel), SPU,
+//                            snn.sp: counts[b, i] = sum_k popc(pre[b, k] &
+//                            w[b, i, k]).
+//   lif_kernel            <- lif_step (_lif_kernel), NU, snn.nu:
+//                            v += count; fire iff v >= threshold; a fired
+//                            neuron resets to 0, else v = max(v - leak, 0).
+//   stdp_kernel           <- stdp_update (_stdp_kernel), SU, snn.su: on
+//                            each fired row, two LFSR steps s1, s2 per
+//                            word; LTP w |= pre when (s1 & 0x3FF) <=
+//                            ltp_prob (u32 compare); with pc the popcount
+//                            of the LTP'd row, LTD w &= pre when
+//                            (s2 & 0x3FF) <= clip((pc - w_exp) * gain *
+//                            1024 / n_syn, 0, 1023); the lane keeps s2.
+//                            Unfired rows pass through unchanged.
+//   fused_step_kernel     <- fused_snn_step (_fused_kernel), the SNNU,
+//                            snn.step: SPU + teach -> NU -> SU (train) in
+//                            one pass.
+// Every kernel takes an optional leading stream axis B on grid y (the
+// port's form of the JAX step path's vmap).  The weight bank (and LFSR)
+// may be one per stream or one shared by every stream (`shared`: stream
+// stride 0), so B samples run against one bank without B copies of it.
+//
+// What bounds them on this card: launch latency.  At the paper's width
+// (n = 10-40 rows of W = 25 words, B = 1-32 streams) one instruction is a
+// few thousand words of work, a few nanoseconds of the card's bandwidth
+// or integer rate, so each launch costs what a launch costs.  At large
+// widths (65,536 inputs, 1,000 rows) they are bandwidth-bound: the fused
+// training step reads the bank and its LFSR lanes and writes both anew,
+// 16 bytes per word.
+//
+// What the design does about it: nothing beyond being one pass.  One
+// warp owns a row (lanes stride its words, coalesced): the SPU popcount
+// reduces with a shuffle sum, which every lane receives, so each lane
+// runs the LIF update itself and `fired` is uniform across the warp with
+// no broadcast; lane 0 writes v' and the fired byte.  A fired row then
+// runs snn::stdp_row (the window kernels' STDP pass, shared through
+// snn_common.cuh), reading the input row and writing the output row; an
+// unfired row is copied through.  `train = false` compiles the SU out
+// and writes only v' and the raster, so the bank and LFSR are returned
+// as they came.  The LIF kernel is one thread per (stream, neuron).  No
+// kernel writes an input, and none needs shared memory or a barrier.
+// Cycles are launched one by one by the host (the step path); the window
+// kernels of snn_train.cu are the fused form of the same T cycles.
+//
+// Plain C interface (bound with ctypes): each launcher launches on the
+// given stream, does not synchronize, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "snn_common.cuh"
+
+namespace {
+
+using snn::kThreads;
+using snn::kWarps;
+
+// Everything a step launch reads and writes; pointers the kernel does
+// not use are null.  Banks are [B, n, W] words ([n, W] when shared),
+// spikes [B, W], neurons [B, n], the raster [B, n] bytes.
+struct Step {
+  const uint32_t* weights;
+  const uint32_t* pre;
+  const uint32_t* lfsr;         // SU
+  const int32_t* v;             // NU
+  const int32_t* count;         // lif_kernel: the SPU's counts
+  const int32_t* teach;         // fused: null means no teacher current
+  const int32_t* ltp_prob;      // SU: [B]
+  const uint8_t* fired_in;      // stdp_kernel: the NU's fired mask
+  uint32_t* w_out;              // SU
+  uint32_t* lfsr_out;           // SU
+  int32_t* v_out;               // NU
+  uint8_t* fired;               // NU
+  int32_t* counts;              // spike_process_kernel
+  int n, W, shared, threshold, leak, w_exp, gain, n_syn;
+};
+
+// This warp's row: its neuron index in [B, n] and its bank row's offset.
+struct Row {
+  size_t nrn, bank;
+};
+
+__device__ __forceinline__ bool warp_row(const Step& o, Row* row) {
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= o.n) return false;
+  const size_t b = blockIdx.y;
+  row->nrn = b * o.n + r;
+  row->bank = (o.shared ? 0 : b * o.n) + r;
+  return true;
+}
+
+// STDP of one row by its warp: stdp_row on a fired row, else a copy.
+__device__ __forceinline__ void su_row(const Step& o, const Row& row,
+                                       bool fired, int lane) {
+  const size_t W = o.W;
+  const uint32_t* w = o.weights + row.bank * W;
+  const uint32_t* st = o.lfsr + row.bank * W;
+  uint32_t* w_out = o.w_out + row.nrn * W;
+  uint32_t* st_out = o.lfsr_out + row.nrn * W;
+  if (fired) {
+    snn::stdp_row(w, st, w_out, st_out, o.pre + blockIdx.y * W, o.W, lane,
+                  static_cast<uint32_t>(o.ltp_prob[blockIdx.y]), o.w_exp,
+                  o.gain, o.n_syn);
+  } else {
+    for (int k = lane; k < o.W; k += 32) {
+      w_out[k] = w[k];
+      st_out[k] = st[k];
+    }
+  }
+}
+
+// Valid-spike count of this warp's row, on every lane.
+__device__ __forceinline__ int row_count(const Step& o, const Row& row,
+                                         int lane) {
+  const uint32_t* w = o.weights + row.bank * o.W;
+  const uint32_t* pre = o.pre + static_cast<size_t>(blockIdx.y) * o.W;
+  int acc = 0;
+  for (int k = lane; k < o.W; k += 32) acc += __popc(pre[k] & w[k]);
+  return snn::warp_sum(acc);
+}
+
+__global__ void __launch_bounds__(kThreads) spike_process_kernel(Step o) {
+  Row row;
+  if (!warp_row(o, &row)) return;   // whole warps leave together
+  const int lane = threadIdx.x % 32;
+  const int count = row_count(o, row, lane);
+  if (lane == 0) o.counts[row.nrn] = count;
+}
+
+__global__ void __launch_bounds__(kThreads)
+lif_kernel(Step o, int total) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  bool fired;
+  o.v_out[i] = snn::lif_update(o.v[i], o.count[i], o.threshold, o.leak,
+                               &fired);
+  o.fired[i] = fired;
+}
+
+__global__ void __launch_bounds__(kThreads) stdp_kernel(Step o) {
+  Row row;
+  if (!warp_row(o, &row)) return;
+  su_row(o, row, o.fired_in[row.nrn] != 0, threadIdx.x % 32);
+}
+
+template <bool kLearn>
+__global__ void __launch_bounds__(kThreads) fused_step_kernel(Step o) {
+  Row row;
+  if (!warp_row(o, &row)) return;
+  const int lane = threadIdx.x % 32;
+  const int32_t teach = o.teach ? o.teach[row.nrn] : 0;
+  const int32_t input = snn::add32(row_count(o, row, lane), teach);
+  bool fired;                       // the same on every lane of the warp
+  const int32_t v_next =
+      snn::lif_update(o.v[row.nrn], input, o.threshold, o.leak, &fired);
+  if (lane == 0) {
+    o.v_out[row.nrn] = v_next;
+    o.fired[row.nrn] = fired;
+  }
+  if (kLearn) su_row(o, row, fired, lane);
+}
+
+// One warp per row: grid (row groups, streams).
+template <typename Kernel>
+int launch_rows(Kernel kernel, const Step& o, int B, void* stream) {
+  const dim3 grid((o.n + kWarps - 1) / kWarps, B);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Step bank(const void* weights, const void* pre, int n, int W, int shared) {
+  Step o = {};
+  o.weights = static_cast<const uint32_t*>(weights);
+  o.pre = static_cast<const uint32_t*>(pre);
+  o.n = n;
+  o.W = W;
+  o.shared = shared;
+  return o;
+}
+
+void set_su(Step* o, const void* lfsr, const void* ltp_prob, void* w_out,
+            void* lfsr_out, int w_exp, int gain, int n_syn) {
+  o->lfsr = static_cast<const uint32_t*>(lfsr);
+  o->ltp_prob = static_cast<const int32_t*>(ltp_prob);
+  o->w_out = static_cast<uint32_t*>(w_out);
+  o->lfsr_out = static_cast<uint32_t*>(lfsr_out);
+  o->w_exp = w_exp;
+  o->gain = gain;
+  o->n_syn = n_syn;
+}
+
+}  // namespace
+
+extern "C" {
+
+// snn.sp: reads spikes [B, W] and weights [B, n, W] ([n, W] if shared)
+// (u32); writes counts [B, n] (int32).
+int snn_spike_process(const void* spikes, const void* weights, void* counts,
+                      int B, int n, int W, int shared, void* stream) {
+  Step o = bank(weights, spikes, n, W, shared);
+  o.counts = static_cast<int32_t*>(counts);
+  return launch_rows(spike_process_kernel, o, B, stream);
+}
+
+// snn.nu over `total` neurons: reads v and count (int32); writes v_out
+// (int32) and fired (bytes).
+int snn_lif_step(const void* v, const void* count, void* v_out, void* fired,
+                 int total, int threshold, int leak, void* stream) {
+  Step o = {};
+  o.v = static_cast<const int32_t*>(v);
+  o.count = static_cast<const int32_t*>(count);
+  o.v_out = static_cast<int32_t*>(v_out);
+  o.fired = static_cast<uint8_t*>(fired);
+  o.threshold = threshold;
+  o.leak = leak;
+  const int blocks = (total + kThreads - 1) / kThreads;
+  lif_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      o, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// snn.su: reads weights and lfsr [B, n, W] ([n, W] if shared) (u32), pre
+// [B, W] (u32), fired [B, n] (bytes) and ltp_prob [B] (int32); writes
+// w_out and lfsr_out [B, n, W].  n_syn >= 1.
+int snn_stdp_update(const void* weights, const void* pre, const void* fired,
+                    const void* lfsr, const void* ltp_prob, void* w_out,
+                    void* lfsr_out, int B, int n, int W, int shared,
+                    int w_exp, int gain, int n_syn, void* stream) {
+  Step o = bank(weights, pre, n, W, shared);
+  o.fired_in = static_cast<const uint8_t*>(fired);
+  set_su(&o, lfsr, ltp_prob, w_out, lfsr_out, w_exp, gain, n_syn);
+  return launch_rows(stdp_kernel, o, B, stream);
+}
+
+// snn.step: reads weights (and, if train, lfsr) [B, n, W] ([n, W] if
+// shared), pre [B, W], v and teach (null: none) [B, n] and, if train,
+// ltp_prob [B]; writes v_out [B, n], fired [B, n] and, if train, w_out
+// and lfsr_out [B, n, W].  n_syn >= 1.
+int snn_fused_step(const void* weights, const void* pre, const void* v,
+                   const void* lfsr, const void* teach, const void* ltp_prob,
+                   void* w_out, void* v_out, void* fired, void* lfsr_out,
+                   int B, int n, int W, int shared, int threshold, int leak,
+                   int w_exp, int gain, int n_syn, int train, void* stream) {
+  Step o = bank(weights, pre, n, W, shared);
+  o.v = static_cast<const int32_t*>(v);
+  o.teach = static_cast<const int32_t*>(teach);
+  o.v_out = static_cast<int32_t*>(v_out);
+  o.fired = static_cast<uint8_t*>(fired);
+  o.threshold = threshold;
+  o.leak = leak;
+  if (!train) return launch_rows(fused_step_kernel<false>, o, B, stream);
+  set_su(&o, lfsr, ltp_prob, w_out, lfsr_out, w_exp, gain, n_syn);
+  return launch_rows(fused_step_kernel<true>, o, B, stream);
+}
+
+// Human-readable text of a code returned above.
+const char* snn_step_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -122,26 +122,6 @@ struct Operands {
   int n, W, T, n_in, threshold, leak, w_exp, gain, n_syn;
 };
 
-// STDP on one fired row, by the warp that owns it (lanes stride words).
-__device__ __forceinline__ void stdp_row(uint32_t* w, uint32_t* st,
-                                         const uint32_t* pre, int W,
-                                         int lane, uint32_t ltp_prob,
-                                         int w_exp, int gain, int n_syn) {
-  int pc = 0;
-  for (int k = lane; k < W; k += 32) {
-    const uint32_t s1 = snn::lfsr_step(st[k]);
-    const uint32_t s2 = snn::lfsr_step(s1);
-    uint32_t word = w[k];
-    if ((s1 & 0x3FFu) <= ltp_prob) word |= pre[k];
-    w[k] = word;
-    st[k] = s2;
-    pc += __popc(word);
-  }
-  const uint32_t prob = snn::ltd_prob(snn::warp_sum(pc), w_exp, gain, n_syn);
-  for (int k = lane; k < W; k += 32)
-    if ((st[k] & 0x3FFu) <= prob) w[k] &= pre[k];
-}
-
 template <bool kEncode, bool kLearn>
 __device__ __forceinline__ void window(const Operands& o, int rows,
                                        unsigned char* smem) {
@@ -203,9 +183,11 @@ __device__ __forceinline__ void window(const Operands& o, int rows,
         v_s[r] = v_next;
         fired_b[static_cast<size_t>(t) * o.n + r] = fired;
       }
-      if (kLearn && fired)             // uniform across the warp
-        stdp_row(row, l_s + static_cast<size_t>(r) * W, pre_s, W, lane,
-                 ltp_prob, o.w_exp, o.gain, o.n_syn);
+      if (kLearn && fired) {           // uniform across the warp
+        uint32_t* st = l_s + static_cast<size_t>(r) * W;
+        snn::stdp_row(row, st, row, st, pre_s, W, lane, ltp_prob, o.w_exp,
+                      o.gain, o.n_syn);
+      }
     }
     __syncthreads();
   }

@@ -1,10 +1,11 @@
-"""Public wrappers of the window kernels, with dispatch by device.
+"""Public wrappers of the SNN kernels, with dispatch by device.
 
   tensor on the CPU    -> the plain PyTorch version (``kernels/ref.py``)
   tensor on a CUDA card -> the CUDA kernel (``csrc/snn_infer.cu`` for
                           serving, ``csrc/snn_train.cu`` for the training
-                          and read-only windows); a launch that fails
-                          raises, nothing falls back
+                          and read-only windows, ``csrc/snn_step.cu`` for
+                          the per-cycle RV-SNN instructions); a launch
+                          that fails raises, nothing falls back
   backend="ref"        -> the plain version on any device, asked for
                           by name (the CPU degradation ladder's last
                           rung; comparisons with the kernels)
@@ -16,6 +17,13 @@ went through the kernel; :func:`reset_launch_counts` sets them to 0.
 :func:`train_window_batch` and launches (and counts) that kernel, as
 the JAX package's op does; ``train=False`` launches the read-only
 window kernel.  The encode forms pair the same way.
+
+The step ops (:func:`spike_process`, :func:`lif_step`,
+:func:`stdp_update`, :func:`fused_snn_step`) take one stream, or a
+leading stream axis B on every per-stream operand; the weight bank (and
+its LFSR lanes) is then one per stream ([B, n, w]) or one shared by all
+([n, w]), which the kernels read with a stream stride of 0.  No padding
+is needed: shapes are the caller's own.
 
 The kernels never write their inputs: the training ops return new
 weight, v and LFSR tensors.  ``t_chunk`` is accepted for the JAX
@@ -36,7 +44,7 @@ from repro_torch.core.bitpack import as_i32
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-_SOURCES = ("snn_infer", "snn_train")
+_SOURCES = ("snn_infer", "snn_train", "snn_step")
 _BACKENDS = ("kernel", "ref")
 
 _MAX_GRID_Y = 65_535      # samples ride the grid's y dimension
@@ -56,9 +64,14 @@ _SIGNATURES = {
                   ("snn_window_infer_encode", 7, 7, True),
                   ("snn_train_tile_rows", 0, 4, False),
                   ("snn_train_smem_bytes", 0, 4, False)),
+    "snn_step": (("snn_spike_process", 3, 4, True),
+                 ("snn_lif_step", 4, 3, True),
+                 ("snn_stdp_update", 7, 7, True),
+                 ("snn_fused_step", 10, 10, True)),
 }
 _ERROR_STRING = {"snn_infer": "snn_error_string",
-                 "snn_train": "snn_train_error_string"}
+                 "snn_train": "snn_train_error_string",
+                 "snn_step": "snn_step_error_string"}
 
 
 @functools.cache
@@ -116,7 +129,8 @@ def train_smem_bytes(rows: int, words: int, encode: bool,
 def _wrappers():
     return (infer_window_batch_encode, infer_window_batch,
             train_window_batch, train_window_batch_encode,
-            fused_snn_window, fused_snn_window_encode)
+            fused_snn_window, fused_snn_window_encode,
+            fused_snn_step, spike_process, lif_step, stdp_update)
 
 
 def launch_counts() -> dict[str, int]:
@@ -498,6 +512,168 @@ def fused_snn_window_encode(weights: torch.Tensor,
                 fired.data_ptr(), 1, n, w, n_in, n_steps, threshold, leak)
         fused_snn_window_encode.launches += 1
     return weights, v2, fired, lfsr_state
+
+
+# --- per-cycle RV-SNN instructions (csrc/snn_step.cu) -----------------------
+
+def _step_streams(what: str, pre: torch.Tensor, weights: torch.Tensor):
+    """The stream layout of a step op: ``pre`` [w] is one stream, [B, w]
+    B streams, against one bank per stream (weights [B, n, w], or [n, w]
+    for one stream) or one bank shared by all (weights [n, w] with
+    ``pre`` [B, w]).  Returns (B, shared, lead, n, w), ``lead`` the
+    per-stream operands' leading shape (() or (B,))."""
+    if pre.ndim not in (1, 2) or weights.ndim not in (2, pre.ndim + 1):
+        raise ValueError(f"{what}: takes pre [w] with weights [n, w], or "
+                         f"pre [B, w] with weights [B, n, w] or [n, w]; got "
+                         f"{tuple(pre.shape)} and {tuple(weights.shape)}")
+    lead = tuple(pre.shape[:-1])
+    n, w = weights.shape[-2:]
+    shared = int(weights.ndim == 2 and pre.ndim == 2)
+    _check_shapes(what, pre=(pre, lead + (w,)),
+                  weights=(weights, (() if shared else lead) + (n, w)))
+    b = lead[0] if lead else 1
+    _check_grid(what, b)
+    return b, shared, lead, n, w
+
+
+def spike_process(spikes: torch.Tensor, weights: torch.Tensor, *,
+                  backend: str = "kernel") -> torch.Tensor:
+    """SPU (``snn.sp``): valid-spike counts int32[..., n] =
+    popcount(spikes & weights[i]) per row.  spikes int32[w] or [B, w],
+    weights int32[n, w] (shared) or [B, n, w] (u32 bit patterns)."""
+    _check_backend(backend)
+    if backend == "ref" or weights.device.type == "cpu":
+        return _ref.spike_process_ref(spikes, weights)
+    what = "spike_process"
+    dev = _check_operands(what, spikes=(spikes, torch.int32, spikes.ndim),
+                          weights=(weights, torch.int32, weights.ndim))
+    b, shared, lead, n, w = _step_streams(what, spikes, weights)
+    counts = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    if b and n:
+        _launch(what, "snn_step", "snn_spike_process", dev,
+                spikes.data_ptr(), weights.data_ptr(), counts.data_ptr(),
+                b, n, w, shared)
+        spike_process.launches += 1
+    return counts
+
+
+def lif_step(v: torch.Tensor, count: torch.Tensor, threshold: int,
+             leak: int, *, backend: str = "kernel"):
+    """NU (``snn.nu``): the streamlined LIF on int32 v and count of one
+    shape (any leading axes).  Returns (v' int32, fired bool)."""
+    _check_backend(backend)
+    if backend == "ref" or v.device.type == "cpu":
+        return _ref.lif_step_ref(v, count, threshold, leak)
+    what = "lif_step"
+    dev = _check_operands(what, v=(v, torch.int32, v.ndim),
+                          count=(count, torch.int32, v.ndim))
+    _check_shapes(what, count=(count, v.shape))
+    if v.numel() >= 2**31:
+        raise ValueError(f"{what}: {v.numel()} neurons exceed one launch")
+    v2 = torch.empty_like(v)
+    fired = torch.empty(v.shape, dtype=torch.bool, device=dev)
+    if v.numel():
+        _launch(what, "snn_step", "snn_lif_step", dev, v.data_ptr(),
+                count.data_ptr(), v2.data_ptr(), fired.data_ptr(),
+                v.numel(), threshold, leak)
+        lif_step.launches += 1
+    return v2, fired
+
+
+def stdp_update(weights: torch.Tensor, pre_spikes: torch.Tensor,
+                post_fired: torch.Tensor, lfsr_state: torch.Tensor, *,
+                w_exp: int, gain: int, n_syn: int, ltp_prob=1023,
+                backend: str = "kernel"):
+    """SU (``snn.su``): binary stochastic STDP on the fired rows.
+
+    weights, lfsr_state int32[n, w] or [B, n, w] (u32 bit patterns,
+    16-bit LFSR lanes), pre_spikes int32[w] or [B, w], post_fired bool
+    [n] or [B, n]; ``ltp_prob`` an int or one value per stream (int32[B],
+    compared as u32).  Returns new (weights', lfsr'), [B, n, w] for B
+    streams; unfired rows are copied through.
+    """
+    _check_backend(backend)
+    if backend == "ref" or weights.device.type == "cpu":
+        return _ref.stdp_update_ref(weights, pre_spikes, post_fired,
+                                    lfsr_state, w_exp, gain, n_syn, ltp_prob)
+    what = "stdp_update"
+    b, shared, lead, n, w = _step_streams(what, pre_spikes, weights)
+    lp = seed_vector(ltp_prob, b, weights.device)
+    dev = _check_operands(
+        what, weights=(weights, torch.int32, weights.ndim),
+        pre_spikes=(pre_spikes, torch.int32, pre_spikes.ndim),
+        post_fired=(post_fired, torch.bool, pre_spikes.ndim),
+        lfsr_state=(lfsr_state, torch.int32, weights.ndim),
+        ltp_prob=(lp, torch.int32, 1))
+    _check_shapes(what, post_fired=(post_fired, lead + (n,)),
+                  lfsr_state=(lfsr_state, weights.shape))
+    _check_window(what, b, n_syn)
+    w2 = torch.empty(lead + (n, w), dtype=torch.int32, device=dev)
+    lf2 = torch.empty_like(w2)
+    if b and n:
+        _launch(what, "snn_step", "snn_stdp_update", dev,
+                weights.data_ptr(), pre_spikes.data_ptr(),
+                post_fired.data_ptr(), lfsr_state.data_ptr(), lp.data_ptr(),
+                w2.data_ptr(), lf2.data_ptr(), b, n, w, shared, w_exp, gain,
+                n_syn)
+        stdp_update.launches += 1
+    return w2, lf2
+
+
+def fused_snn_step(weights: torch.Tensor, pre_spikes: torch.Tensor,
+                   v: torch.Tensor, lfsr_state: torch.Tensor, teach, *,
+                   threshold: int, leak: int, w_exp: int, gain: int,
+                   n_syn: int, ltp_prob=1023, train: bool = True,
+                   backend: str = "kernel"):
+    """SNNU (``snn.step``): one fused SPU -> teach -> NU -> SU cycle in
+    one launch.
+
+    Operands as :func:`spike_process` and :func:`stdp_update`; v (and
+    ``teach``, or None for no teacher current) int32[n] or [B, n].
+    ``train=False`` leaves the SU idle: the input weights and LFSR are
+    returned as they are (a shared bank stays [n, w]).  Returns
+    (weights', v', fired bool, lfsr').
+    """
+    _check_backend(backend)
+    if backend == "ref" or weights.device.type == "cpu":
+        return _ref.fused_snn_step_ref(
+            weights, pre_spikes, v, lfsr_state, teach, threshold, leak,
+            w_exp, gain, n_syn, ltp_prob, train)
+    what = "fused_snn_step"
+    b, shared, lead, n, w = _step_streams(what, pre_spikes, weights)
+    operands = dict(weights=(weights, torch.int32, weights.ndim),
+                    pre_spikes=(pre_spikes, torch.int32, pre_spikes.ndim),
+                    v=(v, torch.int32, pre_spikes.ndim))
+    if teach is not None:
+        operands["teach"] = (teach, torch.int32, pre_spikes.ndim)
+    if train:
+        lp = seed_vector(ltp_prob, b, weights.device)
+        operands.update(lfsr_state=(lfsr_state, torch.int32, weights.ndim),
+                        ltp_prob=(lp, torch.int32, 1))
+    dev = _check_operands(what, **operands)
+    _check_shapes(what, v=(v, lead + (n,)))
+    if teach is not None:
+        _check_shapes(what, teach=(teach, lead + (n,)))
+    v2 = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    fired = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
+    if train:
+        _check_shapes(what, lfsr_state=(lfsr_state, weights.shape))
+        _check_window(what, b, n_syn)
+        w2 = torch.empty(lead + (n, w), dtype=torch.int32, device=dev)
+        lf2 = torch.empty_like(w2)
+        su = (lfsr_state.data_ptr(), lp.data_ptr(), w2.data_ptr(),
+              lf2.data_ptr())
+    else:
+        w2, lf2 = weights, lfsr_state
+        su = (None, None, None, None)
+    if b and n:
+        _launch(what, "snn_step", "snn_fused_step", dev, weights.data_ptr(),
+                pre_spikes.data_ptr(), v.data_ptr(), su[0],
+                None if teach is None else teach.data_ptr(), su[1], su[2],
+                v2.data_ptr(), fired.data_ptr(), su[3], b, n, w, shared,
+                threshold, leak, w_exp, gain, n_syn, int(train))
+        fused_snn_step.launches += 1
+    return w2, v2, fired, lf2
 
 
 reset_launch_counts()

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the window kernels and their building
-blocks.
+"""Plain PyTorch versions of the SNN kernels: the per-cycle RV-SNN
+instructions and the windows built from them.
 
-The semantic ground truth of ``kernels/csrc/snn_infer.cu`` and
-``snn_train.cu``: the CPU tests hold these against the JAX package, and
-``chip_smoke.py`` holds the CUDA kernels against these on the card.
-Each window version is a Python loop over cycles on tensors; they run
-on any device.  Words are int32 bit patterns.
+The semantic ground truth of ``kernels/csrc/snn_infer.cu``,
+``snn_train.cu`` and ``snn_step.cu``: the CPU tests hold these against
+the JAX package, and ``chip_smoke.py`` holds the CUDA kernels against
+these on the card.  The step versions take an optional leading stream
+axis on every per-stream operand, against a bank per stream or one
+shared bank; each window version is a Python loop over cycles on
+tensors.  They run on any device.  Words are int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from repro_torch.core.stdp import STDPParams, stdp_update as _stdp_update
 def spike_process_ref(spikes: torch.Tensor, weights: torch.Tensor
                       ) -> torch.Tensor:
     """SPU: valid-spike counts.  spikes int32[..., w], weights
-    int32[n, w] -> int32[..., n]."""
+    int32[n, w] (shared) or [..., n, w] -> int32[..., n]."""
     return popcount(spikes[..., None, :] & weights)
 
 
@@ -34,8 +36,16 @@ def lif_step_ref(v: torch.Tensor, count: torch.Tensor, threshold: int,
 def stdp_update_ref(weights, pre_spikes, post_fired, lfsr_state,
                     w_exp: int, gain: int, n_syn: int, ltp_prob
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """SU: binary stochastic STDP row update (see ``core/stdp.py``);
-    leading stream axes broadcast, ``ltp_prob`` may be one per stream."""
+    """SU: binary stochastic STDP row update (see ``core/stdp.py``).
+    Leading stream axes broadcast: weights and LFSR may be [n, w] (one
+    bank shared by every stream of pre_spikes int32[..., w] and
+    post_fired bool[..., n]) or [..., n, w]; ``ltp_prob`` may be one per
+    stream.  Returns [..., n, w] tensors."""
+    lead = torch.broadcast_shapes(pre_spikes.shape[:-1],
+                                  post_fired.shape[:-1], weights.shape[:-2],
+                                  lfsr_state.shape[:-2])
+    weights = weights.expand(lead + weights.shape[-2:])
+    lfsr_state = lfsr_state.expand(lead + lfsr_state.shape[-2:])
     return _stdp_update(weights, pre_spikes, post_fired, lfsr_state,
                         STDPParams(w_exp, gain, n_syn, ltp_prob))
 
@@ -47,7 +57,7 @@ def fused_snn_step_ref(weights, pre_spikes, v, lfsr_state, teach,
 
     Returns (weights', v', fired bool, lfsr').  ``teach`` may be None;
     ``train=False`` leaves the SU idle (weights and LFSR pass through).
-    Leading stream axes broadcast.
+    Operands take a leading stream axis as in :func:`stdp_update_ref`.
     """
     counts = spike_process_ref(pre_spikes, weights)
     if teach is not None:

@@ -2,15 +2,18 @@
 
     python -m repro_torch.launch.mnist_stdp [--neurons 40] [--wexp 128] \\
         [--train 2000] [--test 1000] [--epochs 2] [--seed 1] \\
-        [--train-mode active|parallel] [--encode host|kernel] \\
-        [--device cuda|cpu]
+        [--train-mode active|parallel] [--cycle-backend window|step] \\
+        [--encode host|kernel] [--device cuda|cpu]
 
 Procedural digits (the offline MNIST substitute) -> deskew + soft
 threshold -> supervised binary stochastic STDP (active learning, or all
 blocks in parallel) -> test-set classification through the engine's
-``infer`` verb.  Prints the accuracy, the training rate in presented
-samples per second, and the kernels' launch counts.  Runs on the card
-unless ``--device cpu`` asks for the plain versions.
+``infer`` verb.  ``--cycle-backend window`` presents each sample in one
+window-kernel launch, ``step`` cycle by cycle (one fused RV-SNN step
+launch per cycle; the spikes are then encoded on the host).  Prints the
+accuracy, the training rate in presented samples per second, and the
+kernels' launch counts.  Runs on the card unless ``--device cpu`` asks
+for the plain versions.
 """
 
 from __future__ import annotations
@@ -54,24 +57,35 @@ def main() -> None:
                     choices=["active", "parallel"],
                     help="active = sequential error-driven blocks, "
                          "parallel = all blocks in one batched launch")
-    ap.add_argument("--encode", default="kernel", choices=["host", "kernel"],
+    ap.add_argument("--cycle-backend", default="window",
+                    choices=["window", "step"],
+                    help="window = one window-kernel launch per "
+                         "presentation, step = one fused step launch per "
+                         "cycle")
+    ap.add_argument("--encode", default=None, choices=["host", "kernel"],
                     help="kernel = keep uint8 intensities and draw spikes "
-                         "in the kernel; host = pre-encode the set")
+                         "in the kernel; host = pre-encode the set "
+                         "(default: kernel on the window path, host on "
+                         "the step path, which takes no in-kernel draw)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda needs a card; cpu runs the "
                          "plain versions)")
     args = ap.parse_args()
     dev = resolve_device(args.device)
+    if args.encode is None:
+        args.encode = "kernel" if args.cycle_backend == "window" else "host"
 
     tr, labels = preprocessed_digits(args.train, args.seed)
     te, tlabels = preprocessed_digits(args.test, args.seed + 1)
     cfg = dataclasses.replace(WENQUXING_22A, n_neurons=args.neurons,
                               w_exp=args.wexp, epochs=args.epochs,
                               train_mode=args.train_mode,
+                              cycle_backend=args.cycle_backend,
                               encode=args.encode)
     print(f"training 784-{args.neurons} (w_exp={args.wexp}, "
           f"{args.epochs} epochs, {args.train} samples, "
-          f"{args.train_mode}/{args.encode}, device={dev}) ...", flush=True)
+          f"{args.train_mode}/{args.cycle_backend}/{args.encode}, "
+          f"device={dev}) ...", flush=True)
     if dev.type == "cuda":
         # build the kernels and start the device before the clock does
         ops.load_kernels()
@@ -100,6 +114,8 @@ def main() -> None:
                        .to(dev), tlabels)
     print(f"test accuracy: {acc:.4f}  (paper, real MNIST @40: 0.9191; "
           f"chance: 0.10)")
+    print(f"cycle backend {args.cycle_backend}; kernel launches with the "
+          f"test set {ops.launch_counts()}")
     on = unpack(model.weights.cpu(), 784).sum(dim=1).to(torch.float32)
     print(f"effective synapses per neuron: mean={float(on.mean()):.0f} "
           f"(w_exp budget = {args.wexp})")

@@ -212,6 +212,9 @@ class SNNServingEngine:
                             ("overload", overload)):
             if value is not None:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if plan.cycle_backend != "window":
+            raise NotImplementedError("serving a step plan is not ported "
+                                      "yet; use cycle_backend='window'")
         if plan.threshold < 1:
             raise ValueError("SNN serving requires threshold >= 1 "
                              "(zero-padded cycles must stay silent)")

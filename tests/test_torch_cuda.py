@@ -153,7 +153,11 @@ def test_cuda_integrity_reserve_runs_a_kernel(cuda):
                                    "train_window_batch": 0,
                                    "train_window_batch_encode": 0,
                                    "fused_snn_window": 0,
-                                   "fused_snn_window_encode": 0}
+                                   "fused_snn_window_encode": 0,
+                                   "fused_snn_step": 0,
+                                   "spike_process": 0,
+                                   "lif_step": 0,
+                                   "stdp_update": 0}
     inten = torch.from_numpy(np.stack([r.intensities for r in reqs]))
     seeds = torch.tensor([r.seed for r in reqs])
     tt = torch.tensor([r.n_steps for r in reqs], dtype=torch.int32)
@@ -335,3 +339,138 @@ def test_cuda_trainer_equals_the_cpu_run(cuda, mode, encode):
     assert card.weights.device.type == "cuda"
     assert torch.equal(card.weights.cpu(), host.weights)
     assert torch.equal(card.neuron_class.cpu(), host.neuron_class)
+
+
+# --- per-cycle RV-SNN step kernels (csrc/snn_step.cu) -----------------------
+
+def _step_operands(seed, lead, n, n_in, cuda, shared=False):
+    """Step state on the card: random banks and spikes, LFSR lanes in
+    [1, 2^16), membranes and teacher currents so some rows fire."""
+    rng = np.random.default_rng(seed)
+    w = -(-n_in // 32)
+    bank_lead = () if shared else lead
+    weights = as_words(rng.integers(0, 2**32, bank_lead + (n, w),
+                                    dtype=np.uint32), cuda)
+    lanes = as_words(rng.integers(1, 2**16, bank_lead + (n, w))
+                     .astype(np.uint32), cuda)
+    pre = as_words(rng.integers(0, 2**32, lead + (w,), dtype=np.uint32),
+                   cuda)
+    v = torch.from_numpy(rng.integers(0, 200, lead + (n,))
+                         .astype(np.int32)).to(cuda)
+    teach = torch.from_numpy(rng.integers(-300, 200, lead + (n,))
+                             .astype(np.int32)).to(cuda)
+    b = lead[0] if lead else 1
+    ltp = torch.from_numpy(np.resize(np.array([16, 1023, 0, -1], np.int32),
+                                     b)).to(cuda)
+    kw = dict(threshold=8 * w + 50, leak=16, w_exp=n_in // 6, gain=4,
+              n_syn=n_in)
+    return weights, pre, v, lanes, teach, ltp, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,shared", [((), False), ((4,), False),
+                                         ((32,), True)])
+@pytest.mark.parametrize("n,n_in", [(10, 784), (1000, 65536)])
+def test_cuda_step_kernels_equal_plain_versions(cuda, lead, shared, n, n_in):
+    weights, pre, v, lanes, teach, ltp, kw = _step_operands(
+        n + len(lead), lead, n, n_in, cuda, shared)
+    ins = [x.clone() for x in (weights, pre, v, lanes, teach)]
+    ltp = ltp if lead else ltp[:1]
+    su = dict(w_exp=kw["w_exp"], gain=4, n_syn=n_in, ltp_prob=ltp)
+    ops.reset_launch_counts()
+    counts = ops.spike_process(pre, weights)
+    v2, fired = ops.lif_step(v, counts + teach, kw["threshold"], kw["leak"])
+    w2, l2 = ops.stdp_update(weights, pre, fired, lanes, **su)
+    fused = ops.fused_snn_step(weights, pre, v, lanes, teach, ltp_prob=ltp,
+                               **kw)
+    idle = ops.fused_snn_step(weights, pre, v, lanes, None, ltp_prob=ltp,
+                              train=False, **kw)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert [launches[k] for k in ("fused_snn_step", "spike_process",
+                                  "lif_step", "stdp_update")] == [2, 1, 1, 1]
+    _equal_all((counts,), (ops.spike_process(pre, weights, backend="ref"),))
+    _equal_all((v2, fired), ops.lif_step(v, counts + teach, kw["threshold"],
+                                         kw["leak"], backend="ref"))
+    _equal_all((w2, l2), ops.stdp_update(weights, pre, fired, lanes,
+                                         backend="ref", **su))
+    _equal_all(fused, ops.fused_snn_step(weights, pre, v, lanes, teach,
+                                         ltp_prob=ltp, backend="ref", **kw))
+    _equal_all(idle, ops.fused_snn_step(weights, pre, v, lanes, None,
+                                        ltp_prob=ltp, train=False,
+                                        backend="ref", **kw))
+    # the unfused chain equals the fused step; some rows fire, some not
+    _equal_all(fused, (w2, v2, fired, l2))
+    assert fired.any() and not fired.all()
+    assert idle[0] is weights and idle[3] is lanes
+    for a, x in zip(ins, (weights, pre, v, lanes, teach)):
+        assert torch.equal(a, x)             # inputs never written
+
+
+@pytest.mark.gpu
+def test_cuda_step_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    weights, pre, v, lanes, teach, ltp, kw = _step_operands(
+        1, (3,), 8, 100, cuda)
+    with pytest.raises(ValueError, match="n_syn"):
+        ops.fused_snn_step(weights, pre, v, lanes, teach,
+                           **dict(kw, n_syn=0))
+    with pytest.raises(ValueError, match="shape"):
+        ops.fused_snn_step(weights, pre[:2].contiguous(), v, lanes, teach,
+                           **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.spike_process(pre.cpu(), weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.lif_step(v.t(), v.t(), 1, 0)
+    with pytest.raises(ValueError, match="torch"):
+        ops.stdp_update(weights, pre, v, lanes, w_exp=1, gain=1, n_syn=1)
+    with pytest.raises(ValueError, match="per stream"):
+        ops.fused_snn_step(weights, pre, v, lanes, teach,
+                           **dict(kw, ltp_prob=ltp[:2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verb", ["infer", "train", "train_batch"])
+def test_cuda_step_path_equals_window_path(cuda, verb):
+    """The engine's three verbs on the step path (one fused step launch
+    per cycle) equal the window path on the card, and the CPU run."""
+    from repro_torch.core.rvsnn import snn_regfile_batch
+    from repro_torch.engine import SNNEngine, SNNEnginePlan
+
+    rng = np.random.default_rng(7)
+    b, n, w, t = 4, 10, 25, 24
+    bank = rng.integers(0, 2**32, (b, n, w), dtype=np.uint32)
+    wins = (rng.integers(0, 2**32, (b, t, w), dtype=np.uint32)
+            & rng.integers(0, 2**32, (b, t, w), dtype=np.uint32))
+    teach = np.where(np.arange(n)[None] == np.arange(b)[:, None], 64,
+                     -300).astype(np.int32)
+    lp = np.array([16, 1023, 0, 64], np.int32)
+    out = {}
+    for cb, dev in (("step", cuda), ("window", cuda), ("step", "cpu")):
+        plan = SNNEnginePlan(threshold=90, leak=4, n_syn=784,
+                             w_exp=None if verb == "infer" else 128,
+                             cycle_backend=cb)
+        eng = SNNEngine(plan, device=dev)
+        rfs = snn_regfile_batch(as_words(bank), [3, 5, 7, 9])
+        ops.reset_launch_counts()
+        if verb == "infer":
+            res = (eng.infer(bank[0], wins),)
+        elif verb == "train":
+            o = eng.train(type(rfs)(*(x[0] for x in rfs)), wins[0],
+                          teach[0])
+            res = tuple(o.regfile) + (o.fired,)
+        else:
+            r, counts, fired = eng.train_batch(rfs, wins, teach, ltp_prob=lp)
+            res = tuple(r) + (counts, fired)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            if cb == "step":
+                assert launches["fused_snn_step"] == t
+                assert sum(launches.values()) == t
+            else:
+                assert launches["fused_snn_step"] == 0
+        out[(cb, str(dev))] = [x.cpu() for x in res]
+    step, window, cpu = out.values()
+    _equal_all(step, window)
+    _equal_all(step, cpu)
+    assert step[-1].any()

@@ -1,0 +1,275 @@
+"""The port's per-cycle RV-SNN ops against the JAX package's.
+
+``spike_process``, ``lif_step``, ``stdp_update`` and ``fused_snn_step``
+run their plain versions on the CPU, which must equal, bit for bit, both
+the JAX package's ``backend="ref"`` ops and its Pallas kernels run in
+interpret mode (``backend="interp"``: the kernel bodies themselves,
+which pad to 128 lanes and 8-row blocks; the shapes here are not
+multiples of either).  The stream axis is held against B separate calls,
+the fused step against the SPU -> NU -> SU composition, and the RV-SNN
+instructions of ``core/rvsnn.py`` against the JAX package's.  The CUDA
+kernels run only on a card: ``test_torch_cuda.py`` holds them against
+these plain versions there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lif as jlif
+from repro.core import rvsnn as jrvsnn
+from repro.core import stdp as jstdp
+from repro.kernels import ops as jops
+from repro_torch import convert
+from repro_torch.core import lif, rvsnn, stdp
+from repro_torch.core.bitpack import as_words, words_to_numpy
+from repro_torch.kernels import ops
+
+# (n, w): n not a multiple of 8, w not a multiple of 128 (the JAX
+# wrappers pad both), plus the paper's 784-input rows (w = 25)
+SHAPES = [(10, 25), (33, 7), (40, 25), (5, 130)]
+JAX_BACKENDS = ["interp", "ref"]
+
+
+def _words(rng, shape):
+    return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+
+def _step_operands(seed, n, w, lead=()):
+    """Random step state: banks ~50% ON (tail bits included), LFSR lanes
+    in [1, 2^16), membranes and teacher currents such that some rows
+    fire and some do not."""
+    rng = np.random.default_rng(seed)
+    weights = _words(rng, lead + (n, w))
+    pre = _words(rng, lead + (w,))
+    lanes = rng.integers(1, 2**16, lead + (n, w)).astype(np.uint32)
+    v = rng.integers(0, 200, lead + (n,)).astype(np.int32)
+    teach = rng.integers(-300, 200, lead + (n,)).astype(np.int32)
+    return weights, pre, v, lanes, teach
+
+
+def _su(n_syn, w_exp=128, ltp_prob=16):
+    return dict(w_exp=w_exp, gain=4, n_syn=n_syn, ltp_prob=ltp_prob)
+
+
+def _port(*arrays):
+    """numpy uint32 words / int32 / bool -> the port's CPU tensors."""
+    return tuple(as_words(a) if a.dtype == np.uint32 else torch.from_numpy(a)
+                 for a in arrays)
+
+
+def _assert_equal(got, want):
+    """Port outputs (int32 words, int32, bool tensors) == JAX outputs."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        if x.dtype == np.uint32:
+            np.testing.assert_array_equal(words_to_numpy(g), x)
+        else:
+            assert g.dtype == {np.int32: torch.int32,
+                               np.bool_: torch.bool}[x.dtype.type]
+            np.testing.assert_array_equal(g.numpy(), x)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("n,w", SHAPES)
+def test_spike_process_matches_jax(n, w, backend):
+    weights, pre, *_ = _step_operands(n * 100 + w, n, w)
+    got = ops.spike_process(*_port(pre, weights))
+    want = jops.spike_process(jnp.asarray(pre), jnp.asarray(weights),
+                              backend=backend)
+    _assert_equal(got, want)
+    assert torch.equal(got, ops.spike_process(*_port(pre, weights),
+                                              backend="ref"))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("n,threshold,leak", [(10, 192, 16), (77, 10, 1),
+                                              (40, 1, 0)])
+def test_lif_step_matches_jax(n, threshold, leak, backend):
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 300, n).astype(np.int32)
+    c = rng.integers(-50, 120, n).astype(np.int32)
+    v[:2] = 2**31 - 5                      # v + count wraps in int32
+    c[:2] = (7, -9)
+    got = ops.lif_step(*_port(v, c), threshold, leak)
+    want = jops.lif_step(jnp.asarray(v), jnp.asarray(c), threshold, leak,
+                         backend=backend)
+    _assert_equal(got, want)
+    assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("n,w,w_exp,ltp", [(10, 25, 128, 16),
+                                           (33, 7, 64, 1023),
+                                           (40, 25, 512, 64),
+                                           (5, 130, 128, 0)])
+def test_stdp_update_matches_jax(n, w, w_exp, ltp, backend):
+    weights, pre, _, lanes, _ = _step_operands(n * 7 + w, n, w)
+    fired = np.random.default_rng(n).integers(0, 2, n).astype(bool)
+    fired[:2] = (True, False)
+    kw = _su(32 * w - 3, w_exp, ltp)
+    got = ops.stdp_update(*_port(weights, pre, fired, lanes), **kw)
+    want = jops.stdp_update(jnp.asarray(weights), jnp.asarray(pre),
+                            jnp.asarray(fired), jnp.asarray(lanes),
+                            backend=backend, **kw)
+    _assert_equal(got, want)
+    # unfired rows pass through, weights and LFSR both
+    assert torch.equal(got[0][~torch.from_numpy(fired)],
+                       as_words(weights)[~fired])
+    assert torch.equal(got[1][~torch.from_numpy(fired)],
+                       as_words(lanes)[~fired])
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("n,w", SHAPES)
+def test_fused_snn_step_matches_jax(n, w, train, backend):
+    weights, pre, v, lanes, teach = _step_operands(n + w, n, w)
+    # about 8 w spikes reach a row: near the threshold, some rows fire
+    kw = dict(threshold=8 * w + 50, leak=16, train=train, **_su(32 * w))
+    got = ops.fused_snn_step(*_port(weights, pre, v, lanes, teach), **kw)
+    want = jops.fused_snn_step(*map(jnp.asarray, (weights, pre, v, lanes,
+                                                   teach)),
+                               backend=backend, **kw)
+    _assert_equal(got, want)
+    assert got[2].any() and not got[2].all()   # fired and unfired rows
+    if not train:                              # the SU left them alone
+        assert torch.equal(got[0], as_words(weights))
+        assert torch.equal(got[3], as_words(lanes))
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("train", [True, False])
+def test_stream_axis_equals_separate_streams(train, shared):
+    """B streams in one call == B single-stream JAX kernel calls, each
+    with its own ltp_prob; a shared bank (stream stride 0) == that bank
+    handed to every stream."""
+    b, n, w = 3, 12, 25
+    weights, pre, v, lanes, teach = _step_operands(9, n, w, (b,))
+    if shared:
+        weights, lanes = weights[0], lanes[0]
+    ltp = np.array([16, 1023, 0], np.int32)
+    kw = dict(threshold=150, leak=4, **_su(784, ltp_prob=ltp))
+    got = ops.fused_snn_step(*_port(weights, pre, v, lanes, teach),
+                             train=train, **kw)
+    assert got[2].any() and not got[2].all()
+    for i in range(b):
+        wi, li = (weights, lanes) if shared else (weights[i], lanes[i])
+        want = jops.fused_snn_step(
+            *map(jnp.asarray, (wi, pre[i], v[i], li, teach[i])),
+            backend="interp", train=train, **dict(kw, ltp_prob=int(ltp[i])))
+        one = [x if (not train and shared and k in (0, 3)) else x[i]
+               for k, x in enumerate(got)]
+        _assert_equal(tuple(one), want)
+    # the SPU, NU and SU ops take the same stream axis
+    counts = ops.spike_process(*_port(pre, weights))
+    sv, fired = ops.lif_step(torch.from_numpy(v),
+                             counts + torch.from_numpy(teach), 150, 4)
+    assert torch.equal(fired, got[2]) and torch.equal(sv, got[1])
+    if train:
+        su = ops.stdp_update(*_port(weights, pre), fired, as_words(lanes),
+                             **_su(784, ltp_prob=torch.from_numpy(ltp)))
+        assert torch.equal(su[0], got[0]) and torch.equal(su[1], got[3])
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_fused_equals_unfused_composition(lead):
+    """The port of the JAX package's fused-vs-composition test: the
+    fused SNNU step equals SPU -> NU -> SU, and the JAX kernels agree."""
+    n, w = 40, 25
+    weights, pre, _, lanes, _ = _step_operands(0, n, w, lead)
+    v = np.zeros(lead + (n,), np.int32)
+    teach = np.zeros(lead + (n,), np.int32)
+    kw = _su(800, ltp_prob=1023)
+    tw, tp, tv, tl, tt = _port(weights, pre, v, lanes, teach)
+    counts = ops.spike_process(tp, tw)
+    v2, fired = ops.lif_step(tv, counts, 50, 4)
+    w2, l2 = ops.stdp_update(tw, tp, fired, tl, **kw)
+    fused = ops.fused_snn_step(tw, tp, tv, tl, tt, threshold=50, leak=4,
+                               **kw)
+    for a, b in zip(fused, (w2, v2, fired, l2)):
+        assert torch.equal(a, b)
+    assert fired.any()
+    if not lead:
+        jw, jp, jv, jl = map(jnp.asarray, (weights, pre, v, lanes))
+        jc = jops.spike_process(jp, jw, backend="interp")
+        jv2, jf = jops.lif_step(jv, jc, 50, 4, backend="interp")
+        jw2, jl2 = jops.stdp_update(jw, jp, jf, jl, backend="interp", **kw)
+        _assert_equal((w2, v2, fired, l2), (jw2, jv2, jf, jl2))
+
+
+def test_step_ops_take_teach_none_and_check_their_backend():
+    weights, pre, v, lanes, teach = _port(*_step_operands(3, 10, 25))
+    kw = dict(threshold=100, leak=2, **_su(784))
+    a = ops.fused_snn_step(weights, pre, v, lanes, None, **kw)
+    b = ops.fused_snn_step(weights, pre, v, lanes, torch.zeros_like(v), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    before = ops.launch_counts()
+    for bad in ("tpu", "interp"):
+        with pytest.raises(ValueError):
+            ops.fused_snn_step(weights, pre, v, lanes, teach, backend=bad,
+                               **kw)
+        with pytest.raises(ValueError):
+            ops.spike_process(pre, weights, backend=bad)
+    # the plain versions on the CPU launch nothing
+    assert ops.launch_counts() == before
+    assert {"fused_snn_step", "spike_process", "lif_step",
+            "stdp_update"} <= set(before)
+
+
+# --- the RV-SNN instructions (core/rvsnn.py) --------------------------------
+
+def _regfiles(seed, lead=()):
+    weights, pre, v, lanes, _ = _step_operands(seed, 12, 25, lead)
+    jrf = jrvsnn.SnnRegFile(spike=jnp.asarray(pre), v=jnp.asarray(v),
+                            lfsr=jnp.asarray(lanes),
+                            weights=jnp.asarray(weights))
+    return convert.regfile_from_jax(jrf), jrf
+
+
+@pytest.mark.parametrize("backend", ["kernel", "ref"])
+def test_rvsnn_instructions_match_jax(backend):
+    rf, jrf = _regfiles(11)
+    lp, jlp = lif.lif_params(300, 5), jlif.lif_params(300, 5)
+    sp, jsp = stdp.stdp_params(784, 128, 4, 64), jstdp.stdp_params(784, 128,
+                                                                   4, 64)
+    counts = rvsnn.snn_sp(rf, backend=backend)
+    jcounts = jrvsnn.snn_sp(jrf)
+    _assert_equal(counts, jcounts)
+    rf2, fired = rvsnn.snn_nu(rf, counts, lp, backend=backend)
+    jrf2, jfired = jrvsnn.snn_nu(jrf, jcounts, jlp)
+    _assert_equal((rf2.v, fired), (jrf2.v, jfired))
+    assert fired.any() and not fired.all()
+    rf3 = rvsnn.snn_su(rf2, fired, sp, backend=backend)
+    jrf3 = jrvsnn.snn_su(jrf2, jfired, jsp)
+    _assert_equal(tuple(rf3), tuple(jrf3))
+    # snn.step is the same cycle, fused
+    words = as_words(np.asarray(jrf.spike))
+    rf4, fired4 = rvsnn.snn_step(rf, words, lp, sp, backend=backend)
+    jrf4, jfired4 = jrvsnn.snn_step(jrf, jrf.spike, jlp, jsp)
+    _assert_equal(tuple(rf4) + (fired4,), tuple(jrf4) + (jfired4,))
+    _assert_equal(tuple(rf4), tuple(jrf3))
+
+
+def test_snn_step_is_one_fused_launch(monkeypatch):
+    """``snn.step`` goes to ``ops.fused_snn_step`` once per cycle, for
+    every stream of a batched register file, and never to the three
+    unfused ops."""
+    calls = []
+    for name in ("fused_snn_step", "spike_process", "lif_step",
+                 "stdp_update"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, _name=name, **k:
+                            calls.append(_name) or _fn(*a, **k))
+    rf, jrf = _regfiles(12, (3,))
+    lp = lif.lif_params(140, 5)
+    sp = stdp.STDPParams(128, 4, 784, torch.tensor([16, 1023, 0],
+                                                   dtype=torch.int32))
+    for t in range(4):
+        rf, fired = rvsnn.snn_step(rf, rf.spike, lp, sp if t % 2 else None)
+    assert calls == ["fused_snn_step"] * 4
+    assert fired.shape == (3, 12)

@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 
 1. Device: requires a CUDA card; prints the card's name and power limit.
 2. Build: compiles the kernel libraries with ``nvcc`` into ``build/``
-   (``snn_infer.cu``, ``snn_train.cu`` and ``snn_step.cu``, one compiler
-   each, at once) and prints their ptxas lines.
+   (``snn_infer.cu``, ``snn_train.cu``, ``snn_step.cu`` and
+   ``flash_attn.cu``, one compiler each, at once) and prints their ptxas
+   lines.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the
    card (every output ``torch.equal``), then timed, with its bound.
    Serving kernels: the paper's shape (B = 32, 784 inputs, 40 neurons,
@@ -54,7 +55,28 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    mode's times beside the window path's, traces a short step-path run
    under ``torch.profiler``, and runs ``launch/quickstart.py`` on the
    card.
-8. Prints the kernels' JSON line, then, last,
+8. The LM slice: the flash-attention kernel (``flash_attn.cu``) against
+   its plain version in float32 (atol = rtol = 1e-4) and bfloat16
+   (3e-2) at gemma3-1b's shapes (B 1, Hq 4, Hkv 1, D 256, T 2,048,
+   causal, global and with the 512 window; T 37 and 1,000 with the
+   window), GQA non-causal (B 2, Hq 8, Hkv 2, D 128, T 512) and the
+   starcoder2-3b width (Hq 24, Hkv 2, D 128, T 1,024, causal); in
+   bfloat16 also within 1e-2 of the output's largest magnitude.  Timed
+   beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (the yardstick: the port never calls
+   it), all three as device time summed from the profiler.  Then gemma3-1b at full width in bfloat16, random weights from a
+   seed, served by ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy
+   requests of 37 to 2,048 prompt tokens, 32 new tokens each, with the
+   launch counts set to 0 before and read after (flash launches must be
+   26 x 8) and every plain attention function watched; prints prefill ms
+   by prompt length, decode step ms, tokens/s and the card's busy share
+   of a traced prefill and decode step.  Last, a float32 copy of the
+   weights (TF32 off): a 1,000-token prefill through the kernel and
+   through the plain attention agree within 1e-3 of the logits' largest
+   magnitude with the same greedy token, and 8 decode steps after a
+   600-token prefill (the 512-slot rings wrap) match the prefill logits
+   of the prompt plus the tokens so far within the same tolerance.
+9. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -67,6 +89,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -136,6 +159,35 @@ def kernel_ms(fn, symbol: str, reps: int) -> tuple[float, str]:
         count = sum(e.count for e in rows)
         return sum(e.device_time_total for e in rows) / count / 1e3, \
             "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps, "events"
+
+
+def call_device_ms(fn, reps: int) -> tuple[float, str]:
+    """Device time of one call of ``fn``: the self device time of every
+    CUDA kernel and copy the profiler records over ``reps`` calls, summed,
+    over ``reps`` (host dispatch between them left out, as ``kernel_ms``
+    leaves it out); where the profiler records no device time, CUDA events
+    around ``reps`` back-to-back calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    if dev_us > 0:
+        return dev_us / reps / 1e3, "profiler"
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -931,13 +983,19 @@ def phase_step_kernels(rates: Rates) -> dict:
 
 @contextlib.contextmanager
 def counting_plain_versions():
-    """Counts, by name, every call of a plain version
-    (``repro_torch.kernels.ref``) made while the block runs."""
-    from repro_torch.kernels import ref
+    """Counts, by name, every call of a plain version made while the
+    block runs: those of ``repro_torch.kernels.ref``, the flash kernel's
+    (``flash_attention_ref``) and the prefill's plain attention
+    (``attention.chunked_attention``)."""
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models.layers import attention
 
     calls = collections.Counter()
-    saved = {name: fn for name, fn in vars(ref).items()
-             if name.endswith("_ref") and callable(fn)}
+    saved = [(mod, name, fn) for mod in (ref, flash_attention)
+             for name, fn in vars(mod).items()
+             if name.endswith("_ref") and callable(fn)]
+    saved.append((attention, "chunked_attention",
+                  attention.chunked_attention))
 
     def counted(name, fn):
         def call(*args, **kwargs):
@@ -945,13 +1003,13 @@ def counting_plain_versions():
             return fn(*args, **kwargs)
         return call
 
-    for name, fn in saved.items():
-        setattr(ref, name, counted(name, fn))
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(ref, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def step_slice_runs(cycle_backend: str, x, labels, test_windows) -> dict:
@@ -1105,6 +1163,287 @@ def phase_quickstart() -> None:
         fail(f"quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
 
 
+# --- the LM slice: flash attention and gemma3-1b served at full width -------
+
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+FLASH_PALLAS = "src/repro/kernels/flash_attention.py:114"
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores,
+# float32 outside them (the kernel's float32 inputs need full float32)
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+# (name, B, Hq, Hkv, D, T, causal, window)
+FLASH_SHAPES = (
+    ("gemma-global", 1, 4, 1, 256, 2048, True, None),
+    ("gemma-local", 1, 4, 1, 256, 2048, True, 512),
+    ("ragged-37", 1, 4, 1, 256, 37, True, 512),
+    ("ragged-1000", 1, 4, 1, 256, 1000, True, 512),
+    ("gqa-noncausal", 2, 8, 2, 128, 512, False, None),
+    ("starcoder2-3b", 1, 24, 2, 128, 1024, True, None),
+)
+FLASH_DTYPES = ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 3e-2))
+# bf16 also within this share of the output's largest magnitude: about
+# one bf16 rounding of the largest output (2**-8 of it), so a fault in
+# the bf16 loads or stores alone fails where 3e-2 would pass it
+FLASH_BF16_REL = 1e-2
+LM_PROMPTS = (37, 300, 511, 512, 513, 1000, 1536, 2048)
+LM_NEW_TOKENS = 32
+LM_TOL = 1e-3         # of the logits' largest magnitude, float32
+
+
+def unmasked_pairs(tq: int, tk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave, queries the last tq of tk."""
+    pos = np.arange(tq) + (tk - tq)
+    hi = np.minimum(pos, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = (np.maximum(pos - window + 1, 0) if window
+          else np.zeros(tq, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(b, hq, hkv, d, t, causal, window, dtype
+                ) -> tuple[float, str]:
+    """Least time (s) of one call: 4 B Hq D flops per unmasked pair at
+    the card's peak for the dtype, against q, k, v and o crossing HBM
+    once."""
+    flops = 4 * b * hq * d * unmasked_pairs(t, t, causal, window)
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    moved = (torch.finfo(dtype).bits // 8) * d * (2 * b * hq * t
+                                                 + 2 * b * hkv * t)
+    t_ops, t_bytes = flops / rate, moved / HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_call(q, k, v, causal: bool, window):
+    """One ``scaled_dot_product_attention`` call computing the kernel's
+    function (square shapes): the library yardstick."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    pos = torch.arange(q.shape[2], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = kpos > pos - window
+    if causal:
+        mask &= kpos <= pos
+    return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash_kernel() -> dict:
+    """Phase 8a: the flash kernel against its plain version on the card
+    at each shape in both dtypes, then timed beside its bound, the plain
+    version and SDPA."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, b, hq, hkv, d, t, causal, window in FLASH_SHAPES:
+        rng = np.random.default_rng(t + d)
+        base = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(dev) for s in ((b, hq, t, d), (b, hkv, t, d),
+                                   (b, hkv, t, d))]
+        for dtype, dname, tol in FLASH_DTYPES:
+            q, k, v = (x.to(dtype) for x in base)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention(q, k, v, backend="ref", **kw)
+            err = float((got.float() - want.float()).abs().max())
+            top = float(want.float().abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"flash_attention at {name} {dname}: max |kernel - "
+                     f"plain| {err} exceeds atol = rtol = {tol}")
+            if dtype == torch.bfloat16 and err > FLASH_BF16_REL * top:
+                fail(f"flash_attention at {name} {dname}: max |kernel - "
+                     f"plain| {err} exceeds {FLASH_BF16_REL} of the "
+                     f"output's largest magnitude {top}")
+            lib = sdpa_call(q, k, v, causal, window)
+            lib_err = float((lib().float() - want.float()).abs().max())
+            ms, how = kernel_ms(lambda: flash_attention(q, k, v, **kw),
+                                "flash_fwd_kernel", 20)
+            plain = functools.partial(flash_attention, q, k, v,
+                                      backend="ref", **kw)
+            plain_ms, plain_how = call_device_ms(plain, 5)
+            library_ms, lib_how = call_device_ms(lib, 20)
+            plain_call_ms, library_call_ms = time_ms(plain, 5), \
+                time_ms(lib, 20)
+            b_s, b_by = flash_bound(b, hq, hkv, d, t, causal, window, dtype)
+            shape = (f"B={b} Hq={hq} Hkv={hkv} D={d} T={t} causal={causal} "
+                     f"window={window} {dname}")
+            print(f"kernel flash_attention @ {name} ({shape}): within "
+                  f"{tol} max_abs_err={err} (largest |plain| {top}) "
+                  f"ms={ms} ({how}) plain_ms={plain_ms} ({plain_how}; "
+                  f"{plain_call_ms} a call with its host dispatch) "
+                  f"library_ms={library_ms} ({lib_how}; {library_call_ms} "
+                  f"a call; sdpa, max |sdpa - plain| {lib_err}) "
+                  f"bound_ms={1e3 * b_s} ({b_by}); kernel/sdpa "
+                  f"{ms / library_ms}", flush=True)
+            out[f"{name}-{dname}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * b_s, bound_by=b_by, library_ms=library_ms)
+    return out
+
+
+def busy_share(fn) -> tuple[float, float, str]:
+    """(wall us, card busy share, heaviest device work) of one call of
+    ``fn`` under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    devs = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in devs)
+    top = "; ".join(f"{e.key[:90]} {e.count}x {e.self_device_time_total} us"
+                    for e in sorted(devs, key=lambda e:
+                                    -e.self_device_time_total)[:5])
+    return wall_us, dev_us / wall_us, top
+
+
+def phase_lm_slice():
+    """Phase 8b: gemma3-1b at full width in bfloat16 served on the card,
+    the launch counts set to 0 before and read after, every plain
+    attention function watched.  Returns (launches, model)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm slice: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, window {cfg.window} on {cfg.swa_period - 1} of every "
+          f"{cfg.swa_period} layers), {n_params} parameters in "
+          f"{model.dtype}, drawn in {time.perf_counter() - t0} s", flush=True)
+    # warm-up outside the counted run (cuBLAS handles, allocator)
+    ServingEngine(model, n_slots=4, max_len=4096).run(
+        [Request(rid=-1, prompt=[1, 2, 3, 4, 5], max_new_tokens=2)])
+
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LM_PROMPTS]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    eng = ServingEngine(model, n_slots=4, max_len=4096)
+    prefill_ms, decode_ms = {}, []
+
+    def timed(fn, record):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record(args, 1e3 * (time.perf_counter() - t))
+            return result
+        return call
+
+    model.prefill = timed(model.prefill, lambda a, ms: prefill_ms.__setitem__(
+        a[0].shape[1], ms))
+    model.decode_step = timed(model.decode_step,
+                              lambda a, ms: decode_ms.append(ms))
+    ops.reset_launch_counts()
+    with counting_plain_versions() as plain:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    del model.prefill, model.decode_step
+    if sum(plain.values()):
+        fail(f"the LM slice reached plain versions: {dict(plain)}")
+    for r in reqs:
+        if not (r.done and len(r.output) == LM_NEW_TOKENS
+                and all(0 <= x < cfg.vocab_size for x in r.output)):
+            fail(f"request {r.rid} ({len(r.prompt)} prompt tokens) ended "
+                 f"done={r.done} with {len(r.output)} tokens")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers * len(reqs)
+    if launches != want:
+        fail(f"the LM slice launched {launches}, expected {want}")
+    print(f"lm slice: {len(reqs)} requests x {LM_NEW_TOKENS} tokens done in "
+          f"{wall} s = {eng.tokens_out / wall} tokens/s ({eng.steps} engine "
+          f"steps); flash_attention launches {launches['flash_attention']} ="
+          f" {cfg.n_layers} layers x {len(reqs)} prefills; plain attention "
+          f"reached: 0", flush=True)
+    print("lm slice: prefill ms by prompt length: " + "; ".join(
+        f"{n} {prefill_ms[n]}" for n in LM_PROMPTS), flush=True)
+    print(f"lm slice: decode step ms (4 slots): {step_summary(decode_ms)}",
+          flush=True)
+
+    with torch.inference_mode():
+        toks = torch.tensor([prompts[-1]], device=dev)
+        wall_us, share, top = busy_share(lambda: model.prefill(toks, 4096))
+        print(f"lm trace: prefill of {toks.shape[1]} tokens: wall {wall_us} "
+              f"us, card busy {share} of it; device work: {top}",
+              flush=True)
+        last = torch.from_numpy(eng.last_token[:, None]).to(dev)
+        clen = torch.from_numpy(eng.cache_len).to(dev)
+        wall_us, share, top = busy_share(
+            lambda: model.decode_step(last, eng.cache, clen))
+        print(f"lm trace: decode step (4 slots): wall {wall_us} us, card "
+              f"busy {share} of it; device work: {top}", flush=True)
+    return launches, model
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_lm_correctness(model) -> None:
+    """Phase 8c: a float32 copy of the slice's weights, TF32 off: the
+    kernel's prefill against the plain attention's, and teacher-forced
+    decode against prefill, within ``LM_TOL``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m32 = model.cast(torch.float32)
+    vocab = m32.cfg.vocab_size
+    rng = np.random.default_rng(15)
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        prompt = torch.from_numpy(rng.integers(0, vocab, (1, 1000))).to(dev)
+        kern, _, _ = m32.prefill(prompt, 1024)
+        m32.attn_backend = "ref"
+        plain, _, _ = m32.prefill(prompt, 1024)
+        m32.attn_backend = "kernel"
+        err = rel_err(kern, plain)
+        same = int(kern.argmax()) == int(plain.argmax())
+        print(f"lm check: f32 prefill of 1000 tokens, kernel vs plain "
+              f"attention: max |diff| / max |logit| = {err}, greedy token "
+              f"equal: {same}", flush=True)
+        if err > LM_TOL or not same:
+            fail("the f32 prefill through the kernel differs from the plain "
+                 "attention's")
+
+        toks = torch.from_numpy(rng.integers(0, vocab, (1, 600))).to(dev)
+        logits, cache, clen = m32.prefill(toks, 1024)
+        errs, agree = [], 0
+        for _ in range(8):
+            nxt = logits.argmax(dim=-1)[:, None]
+            toks = torch.cat([toks, nxt], dim=1)
+            logits, cache = m32.decode_step(nxt, cache, clen)
+            clen += 1
+            want, _, _ = m32.prefill(toks, 1024)
+            errs.append(rel_err(logits, want))
+            agree += int(logits.argmax()) == int(want.argmax())
+        print(f"lm check: teacher-forced decode after a 600-token prefill "
+              f"(512-slot rings wrap), 8 steps vs prefill of the prompt "
+              f"plus the tokens so far: max |diff| / max |logit| per step "
+              f"{errs}; greedy equal on {agree} of 8", flush=True)
+        if max(errs) > LM_TOL:
+            fail("teacher-forced decode differs from prefill")
+    del m32
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1124,7 +1463,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ops.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for source in ("snn_infer", "snn_train", "snn_step"):
+    for source in ("snn_infer", "snn_train", "snn_step", "flash_attn"):
         log = build.library_path(source).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -1156,6 +1495,13 @@ def main() -> None:
     step_launches = phase_step_slice()
     phase_train_trace(*preprocessed_digits(16, seed=3), "step")
     phase_quickstart()
+
+    # phase 8: the LM slice (flash attention), gemma3-1b at full width
+    flash = phase_flash_kernel()
+    lm_launches, model = phase_lm_slice()
+    phase_lm_correctness(model)
+    del model
+    torch.cuda.empty_cache()
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -1206,6 +1552,17 @@ def main() -> None:
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                for shape, t in shapes.items() if shape != "step-parallel"}})
+    main_t = flash["gemma-global-bf16"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_PALLAS,
+        "launches": lm_launches["flash_attention"],
+        "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
+        **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        "shape": "gemma-global-bf16",
+        **{shape: t for shape, t in flash.items()
+           if shape != "gemma-global-bf16"}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""repro_torch — the Wenquxing 22A SNN datapath on PyTorch and CUDA.
+"""repro_torch — the Wenquxing 22A SNN datapath, and the LM scaffold's
+serving path, on PyTorch and CUDA.
 
 The PyTorch/CUDA counterpart of the JAX package ``repro``, module for
-module (``core/``, ``kernels/``, ``engine/``, ``serving/``, ...).  Plain
-tensor code is PyTorch; the serving kernels are CUDA C++ written for
-Hopper (``kernels/csrc/``), built with ``nvcc`` on first use.
+module (``core/``, ``kernels/``, ``engine/``, ``serving/``, ``models/``,
+``configs/``, ...).  Plain tensor code is PyTorch; the kernels are CUDA
+C++ written for Hopper (``kernels/csrc/``), built with ``nvcc`` on first
+use.
 
 Packed u32 words (synapse rows, spike rows) are held as ``torch.int32``
 bit patterns: CPU PyTorch has no uint32 shift, add or compare.  The

@@ -8,6 +8,11 @@ patterns on its device.  These functions move banks, register files and
 trained models across without changing a bit, so both packages can
 serve, or go on training, the same state.  Nothing here imports JAX:
 the JAX side is read with ``np.asarray``.
+
+The LM's params and decode caches cross too: the JAX package stacks
+each position of its repeating super-block over the repeats (and keeps
+the remainder layers apart); the port keeps one module, and one cache
+entry, per layer.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import layer_kinds, scan_grouping
 from repro_torch.core.bitpack import as_words, words_to_numpy
 from repro_torch.core.rvsnn import SnnRegFile
 from repro_torch.core.trainer import SNNModel
@@ -80,3 +86,73 @@ def model_from_jax(model, cfg=None, device=None) -> SNNModel:
                                         device)
     return SNNModel(weights, torch.from_numpy(classes.copy()).to(device),
                     cfg)
+
+
+# --- the LM ------------------------------------------------------------------
+
+def _layer_of_stack(stack: dict, cfg, i: int) -> dict:
+    """Layer ``i`` of a JAX stack ``{"scan": [...], "rem": [...]}``: layer
+    ``i < period * reps`` is ``scan[i % period]`` at repeat
+    ``i // period``, the rest ``rem[i - period * reps]``."""
+    period, reps, _ = scan_grouping(layer_kinds(cfg))
+    if i < period * reps:
+        return _index_tree(stack["scan"][i % period], i // period)
+    return stack["rem"][i - period * reps]
+
+
+def _index_tree(tree, j: int):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
+
+
+def _put(param: torch.Tensor, leaf) -> None:
+    """Copy a JAX leaf (numpy-convertible, bf16 or f32) into ``param``,
+    through float32, which holds both exactly."""
+    a = np.asarray(leaf).astype(np.float32)
+    if tuple(a.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(a.shape)} does not fit the port's "
+                         f"{tuple(param.shape)}")
+    param.copy_(torch.from_numpy(a))
+
+
+@torch.no_grad()
+def lm_params_from_jax(model, params) -> None:
+    """Load the JAX package's LM params (the pytree of
+    ``Model.init_params``, leaves numpy-convertible) into the port's
+    ``Model`` in place, each leaf cast to the parameter's dtype."""
+    _put(model.embed, params["embed"])
+    for k, leaf in params["final_norm"].items():
+        _put(model.final_norm[k], leaf)
+    if "lm_head" in params:
+        _put(model.lm_head, params["lm_head"])
+    for i, block in enumerate(model.layers):
+        layer = _layer_of_stack(params["decoder"], model.cfg, i)
+        for part in ("ln1", "mixer", "ln2", "ffn"):
+            mine = getattr(block, part)
+            if set(mine) != set(layer[part]):
+                raise ValueError(f"layer {i} {part}: the JAX params hold "
+                                 f"{sorted(layer[part])}, the port "
+                                 f"{sorted(mine)}")
+            for k, leaf in layer[part].items():
+                _put(mine[k], leaf)
+
+
+def lm_cache_from_jax(model, cache, device=None) -> list[dict]:
+    """The JAX package's decode cache (``{"decoder": {"scan", "rem"}}``)
+    -> the port's list of per-layer ``{"k", "v"}`` in the model's dtype
+    on ``device``."""
+    out = []
+    for i in range(len(model.layers)):
+        kv = _layer_of_stack(cache["decoder"], model.cfg, i)["kv"]
+        out.append({name: torch.from_numpy(
+            np.asarray(kv[name]).astype(np.float32)).to(device, model.dtype)
+            for name in ("k", "v")})
+    return out
+
+
+def lm_cache_to_numpy(cache: list[dict]) -> list[dict]:
+    """The port's decode cache -> per-layer ``{"k", "v"}`` float32 numpy
+    arrays [B, Hkv, S, D]."""
+    return [{name: layer[name].detach().float().cpu().numpy()
+             for name in ("k", "v")} for layer in cache]

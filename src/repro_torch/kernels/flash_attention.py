@@ -1,0 +1,109 @@
+"""Prefill attention: the CUDA kernel's wrapper and its plain version.
+
+    flash_attention(q, k, v, causal=, window=, scale=)
+      tensor on the CPU     -> flash_attention_ref, the plain version
+      tensor on a CUDA card -> csrc/flash_attn.cu (launches or raises)
+      backend="ref"         -> the plain version on any device
+
+q [B, Hq, Tq, D] and k, v [B, Hkv, Tk, D] -> [B, Hq, Tq, D], in the
+input dtype with float32 accumulation.  Queries are the last Tq
+positions of the Tk-long stream; the KV head of query head h is
+h // (Hq // Hkv); the masks are causal and a sliding ``window``; a row
+masked everywhere gives zeros.  The kernel takes any Tq and Tk (it masks
+the ragged edge itself), bf16 or float32, head_dim 32, 64, 128 or 256,
+and q, k, v with any strides whose last one is 1 (the transposed views of
+a fused qkv projection).  This is the counterpart of the JAX package's
+Pallas ``flash_attention``, which needs Tq and Tk in whole blocks.
+
+The wrapper counts its launches in ``flash_attention.launches``
+(``ops.launch_counts()`` lists it beside the SNN kernels).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_GRID = 65_535          # heads ride grid y, batch grid z
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the dense ``attention_ref``
+    with the kernel's masking (zeros for a row masked everywhere)."""
+    return attention_ref(q, k, v, causal, window, scale,
+                         masked_rows_zero=True)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> None:
+    """Raise on what the kernel does not take."""
+    what = "flash_attention"
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, q {q.dtype}")
+        if t.ndim != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be 4-D with a "
+                             f"contiguous last dimension, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    b, hq, tq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{what}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if hq % k.shape[1]:
+        raise ValueError(f"{what}: {hq} query heads are not a multiple of "
+                         f"{k.shape[1]} KV heads")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not in {_HEAD_DIMS}")
+    if hq > _MAX_GRID or b > _MAX_GRID:
+        raise ValueError(f"{what}: {b} sequences of {hq} heads exceed the "
+                         f"grid's {_MAX_GRID} per launch")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be >= 1, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    backend: str = "kernel") -> torch.Tensor:
+    """q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] -> [B, Hq, Tq, D]."""
+    from repro_torch.kernels import ops
+
+    ops._check_backend(backend)
+    if backend == "ref" or q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    _check(q, k, v, window)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = ops._libraries()["flash_attn"]
+    smem = lib.flash_attn_smem_bytes(d)
+    limit = getattr(torch.cuda.get_device_properties(q.device),
+                    "shared_memory_per_block_optin", None)
+    if limit is not None and smem > limit:
+        raise ValueError(f"flash_attention: a block needs {smem} bytes of "
+                         f"shared memory, the card gives {limit}")
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    ops._launch("flash_attention", "flash_attn", "flash_attn_forward",
+                q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], b, hq, hkv, tq, tk, d, int(causal),
+                0 if window is None else window, _DTYPES[q.dtype], scale)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -25,6 +25,10 @@ its LFSR lanes) is then one per stream ([B, n, w]) or one shared by all
 ([n, w]), which the kernels read with a stream stride of 0.  No padding
 is needed: shapes are the caller's own.
 
+``launch_counts`` also lists ``flash_attention``, whose wrapper (the LM
+slice's prefill attention, ``csrc/flash_attn.cu``) lives in
+``kernels/flash_attention.py`` beside its plain version.
+
 The kernels never write their inputs: the training ops return new
 weight, v and LFSR tensors.  ``t_chunk`` is accepted for the JAX
 signature and has no effect: a block stages its state in shared memory
@@ -44,49 +48,55 @@ from repro_torch.core.bitpack import as_i32
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-_SOURCES = ("snn_infer", "snn_train", "snn_step")
+_SOURCES = ("snn_infer", "snn_train", "snn_step", "flash_attn")
 _BACKENDS = ("kernel", "ref")
 
 _MAX_GRID_Y = 65_535      # samples ride the grid's y dimension
 _ROW_TOO_WIDE = -1        # the launchers' code for a row that does not fit
 
 
-# (symbol, pointer arguments, int arguments, takes a stream) of each
-# library's C functions; a launcher takes the stream as a last pointer.
+# (symbol, argument kinds, result kind) of each library's C functions:
+# p a pointer (a launcher's stream is its last), i an int, l a 64-bit
+# int, f a float.
 _SIGNATURES = {
-    "snn_infer": (("snn_infer_window_batch_encode", 5, 7, True),
-                  ("snn_infer_window_batch", 3, 6, True),
-                  ("snn_tile_rows", 0, 3, False),
-                  ("snn_smem_bytes", 0, 3, False)),
-    "snn_train": (("snn_train_window_batch", 10, 9, True),
-                  ("snn_train_window_batch_encode", 11, 10, True),
-                  ("snn_window_infer", 6, 6, True),
-                  ("snn_window_infer_encode", 7, 7, True),
-                  ("snn_train_tile_rows", 0, 4, False),
-                  ("snn_train_smem_bytes", 0, 4, False)),
-    "snn_step": (("snn_spike_process", 3, 4, True),
-                 ("snn_lif_step", 4, 3, True),
-                 ("snn_stdp_update", 7, 7, True),
-                 ("snn_fused_step", 10, 10, True)),
+    "snn_infer": (("snn_infer_window_batch_encode", "ppppp iiiiiii p", "i"),
+                  ("snn_infer_window_batch", "ppp iiiiii p", "i"),
+                  ("snn_tile_rows", "iii", "i"),
+                  ("snn_smem_bytes", "iii", "l")),
+    "snn_train": (("snn_train_window_batch", "pppppppppp iiiiiiiii p", "i"),
+                  ("snn_train_window_batch_encode",
+                   "ppppppppppp iiiiiiiiii p", "i"),
+                  ("snn_window_infer", "pppppp iiiiii p", "i"),
+                  ("snn_window_infer_encode", "ppppppp iiiiiii p", "i"),
+                  ("snn_train_tile_rows", "iiii", "i"),
+                  ("snn_train_smem_bytes", "iiii", "l")),
+    "snn_step": (("snn_spike_process", "ppp iiii p", "i"),
+                 ("snn_lif_step", "pppp iii p", "i"),
+                 ("snn_stdp_update", "ppppppp iiiiiii p", "i"),
+                 ("snn_fused_step", "pppppppppp iiiiiiiiii p", "i")),
+    "flash_attn": (("flash_attn_forward", "pppp lllllllll iiiiiiiii f p",
+                    "i"),
+                   ("flash_attn_smem_bytes", "i", "l")),
 }
 _ERROR_STRING = {"snn_infer": "snn_error_string",
                  "snn_train": "snn_train_error_string",
-                 "snn_step": "snn_step_error_string"}
+                 "snn_step": "snn_step_error_string",
+                 "flash_attn": "flash_attn_error_string"}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 
 @functools.cache
 def _libraries() -> dict[str, ctypes.CDLL]:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = {name: ctypes.CDLL(str(path))
             for name, path in build.build_all(_SOURCES).items()}
     for name, lib in libs.items():
-        for symbol, n_ptr, n_int, stream in _SIGNATURES[name]:
+        for symbol, args, result in _SIGNATURES[name]:
             fn = getattr(lib, symbol)
-            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * stream
-            fn.restype = (ctypes.c_longlong if symbol.endswith("smem_bytes")
-                          else i32)
+            fn.argtypes = [_CTYPES[a] for a in args.replace(" ", "")]
+            fn.restype = _CTYPES[result]
         err = getattr(lib, _ERROR_STRING[name])
-        err.argtypes = [i32]
+        err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return libs
 
@@ -127,10 +137,12 @@ def train_smem_bytes(rows: int, words: int, encode: bool,
 
 
 def _wrappers():
+    from repro_torch.kernels.flash_attention import flash_attention
     return (infer_window_batch_encode, infer_window_batch,
             train_window_batch, train_window_batch_encode,
             fused_snn_window, fused_snn_window_encode,
-            fused_snn_step, spike_process, lif_step, stdp_update)
+            fused_snn_step, spike_process, lif_step, stdp_update,
+            flash_attention)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the SNN kernels: the per-cycle RV-SNN
-instructions and the windows built from them.
+"""Plain PyTorch versions of the SNN kernels (the per-cycle RV-SNN
+instructions and the windows built from them), and the dense attention
+reference of the LM slice.
 
 The semantic ground truth of ``kernels/csrc/snn_infer.cu``,
 ``snn_train.cu`` and ``snn_step.cu``: the CPU tests hold these against
@@ -168,3 +169,41 @@ def infer_window_batch_encode_ref(weights: torch.Tensor,
     wins = encode_windows_host(seeds, intensities, n_steps,
                                weights.shape[1], t_total)
     return infer_window_batch_ref(weights, wins, threshold, leak)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int | None = None,
+                  scale: float | None = None, *,
+                  masked_rows_zero: bool = False) -> torch.Tensor:
+    """Dense reference attention.
+
+    q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] (GQA: Hq % Hkv == 0).
+    Queries are the last Tq positions of the Tk-long stream; window:
+    sliding-window size (keys within [i - window + 1, i]).  Masked scores
+    are -inf, so a row masked everywhere gives NaN.  ``masked_rows_zero``
+    masks as the flash kernel does instead: scores start at -1e30, p is
+    masked again after the exponential, and l == 0 reads as 1, so such a
+    row gives zeros.
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qg = (q.float() * scale).reshape(b, hkv, hq // hkv, tq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if not masked_rows_zero:
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+        return o.reshape(b, hq, tq, d).to(q.dtype)
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    o = o / torch.where(l == 0.0, 1.0, l)
+    return o.reshape(b, hq, tq, d).to(q.dtype)

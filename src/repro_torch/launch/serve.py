@@ -1,12 +1,21 @@
-"""SNN serving demo on the port's engine.
+"""Serving demos on the port's engines.
 
     python -m repro_torch.launch.serve --arch wenquxing-snn [--device cpu]
+    python -m repro_torch.launch.serve --arch gemma3-1b [--device cpu]
+    python -m repro_torch.launch.serve --arch gemma3-1b --no-reduced
 
-Intensity-resident digit requests with ragged window lengths go through
-the dynamic-window-batching :class:`SNNServingEngine`; every SERVED
-count vector is then checked against the plain version of the
-pre-packed path on the host-encoded window.  Exits nonzero if a request
-did not terminate or a count diverged.
+wenquxing-snn: intensity-resident digit requests with ragged window
+lengths go through the dynamic-window-batching :class:`SNNServingEngine`;
+every SERVED count vector is then checked against the plain version of
+the pre-packed path on the host-encoded window.  Exits nonzero if a
+request did not terminate or a count diverged.
+
+An LM config: a few short prompts through the continuous-batching
+:class:`ServingEngine`, greedy, with random weights from a seed.
+``--reduced`` (the default) serves the config's reduced form in float32
+(``attn_chunk=16``, ``max_len=128``), as the JAX launcher does;
+``--no-reduced`` serves the full width in bfloat16.  Exits nonzero if a
+request did not finish.
 """
 
 from __future__ import annotations
@@ -19,13 +28,18 @@ from collections import Counter
 import numpy as np
 import torch
 
+from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.configs.wenquxing_snn import WENQUXING_22A
 from repro_torch.core.encoder import encode_windows_host, quantize_intensities
 from repro_torch.core.stdp import init_weights
 from repro_torch.data.digits import make_digits
 from repro_torch.engine import plan_from_config
 from repro_torch.kernels import ops
-from repro_torch.serving import SNNRequest, SNNServingEngine, SNNServingPolicy
+from repro_torch.models.transformer import Model
+from repro_torch.serving import (Request, ServingEngine, SNNRequest,
+                                 SNNServingEngine, SNNServingPolicy)
+
+LM_NEW_TOKENS = 8       # tokens generated per LM request
 
 
 def _serve_snn(args) -> int:
@@ -74,20 +88,49 @@ def _serve_snn(args) -> int:
     return int(bool(non_terminal or mismatches))
 
 
+def _serve_lm(args) -> int:
+    """Serve ``--requests`` short prompts; returns the exit code."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+        model = Model(cfg, torch.float32, attn_chunk=16, device=args.device)
+    else:
+        model = Model(cfg, device=args.device)
+    ops.reset_launch_counts()
+    eng = ServingEngine(model, n_slots=args.slots, max_len=128)
+    reqs = [Request(rid=i, prompt=[1 + i, 2, 3],
+                    max_new_tokens=LM_NEW_TOKENS)
+            for i in range(args.requests)]
+    eng.run(reqs, max_steps=2000)
+    done = sum(r.done for r in reqs)
+    print(f"{cfg.name}: {done}/{len(reqs)} done, {eng.tokens_out} tokens "
+          f"(device={eng.device}, dtype={model.dtype}, flash_attention "
+          f"launches {ops.launch_counts()['flash_attention']})")
+    return int(done != len(reqs))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=["wenquxing-snn"])
+    ap.add_argument("--arch", required=True,
+                    choices=["wenquxing-snn"] + list_configs())
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=3)
     ap.add_argument("--encode", default="kernel", choices=["host", "kernel"],
-                    help="where the Poisson encode runs")
+                    help="where the Poisson encode runs (wenquxing-snn)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda needs a card; cpu runs the "
                          "plain versions)")
     ap.add_argument("--bench", action="store_true",
-                    help="print the serving stats after the run")
+                    help="print the serving stats after the run "
+                         "(wenquxing-snn)")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the LM config's reduced form in float32 "
+                         "(--no-reduced: full width in bfloat16)")
     args = ap.parse_args()
-    sys.exit(_serve_snn(args))
+    if args.arch == "wenquxing-snn":
+        sys.exit(_serve_snn(args))
+    sys.exit(_serve_lm(args))
 
 
 if __name__ == "__main__":

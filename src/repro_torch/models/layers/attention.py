@@ -1,0 +1,243 @@
+"""GQA attention: prefill through the flash kernel, decode with a cache.
+
+Three execution paths, all matching ``repro_torch.kernels.ref.attention_ref``:
+
+* ``repro_torch.kernels.flash_attention`` — the CUDA kernel
+  (``kernels/csrc/flash_attn.cu``), the prefill's path on a card.
+* ``chunked_attention`` — online softmax over KV chunks in plain
+  PyTorch, the same math; the prefill's path on the CPU, or anywhere
+  with ``backend="ref"``.
+* ``decode_attention`` — one-token query against a KV cache laid out
+  [B, Hkv, S, D], plain PyTorch on every device (the JAX package too
+  computes it outside any kernel of its own).
+
+Weights layout: fused qkv projection [d, (Hq + 2*Hkv) * Dh] so one matmul
+produces q/k/v.  ``decode_step`` writes the new token's k and v into the
+cache in place (no copy of the cache per step) and returns it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers.init import normal
+from repro_torch.models.layers.rope import apply_rope, apply_rope_per_batch
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    window: int | None = None     # sliding-window size (None = full)
+    causal: bool = True           # False for encoder self-attention
+    use_bias: bool = False
+    chunk_k: int = 1024           # kv block for the chunked path
+    use_rope: bool = True
+
+
+def init(gen: torch.Generator | None, cfg: AttnConfig,
+         dtype=torch.bfloat16, device=None) -> dict:
+    """The layer's weights, drawn from ``gen`` (None: uninitialized,
+    to be loaded)."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wqkv": normal(gen, (d, (hq + 2 * hkv) * hd), d ** -0.5, dtype,
+                        device),
+         "wo": normal(gen, (hq * hd, d), (hq * hd) ** -0.5, dtype, device)}
+    if cfg.use_bias:
+        p["bqkv"] = torch.zeros(((hq + 2 * hkv) * hd,), dtype=dtype,
+                                device=device)
+        p["bo"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def _split_qkv(params, x: torch.Tensor, cfg: AttnConfig):
+    """x: [B, T, d] -> q [B, Hq, T, Dh], k/v [B, Hkv, T, Dh] (transposed
+    views of one projection)."""
+    b, t, _ = x.shape
+    qkv = x @ params["wqkv"]
+    if cfg.use_bias:
+        qkv = qkv + params["bqkv"]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = qkv.split([hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q = q.reshape(b, t, hq, hd).transpose(1, 2)
+    k = k.reshape(b, t, hkv, hd).transpose(1, 2)
+    v = v.reshape(b, t, hkv, hd).transpose(1, 2)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, chunk_k=1024,
+                      q_offset=0):
+    """Online-softmax attention, looping over kv chunks.
+
+    q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D].  ``q_offset``: absolute
+    position of q[...,0,:] minus that of k[...,0,:] (prefill: Tk - Tq).
+    """
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    chunk_k = min(chunk_k, tk)
+    tk_valid = tk
+    if tk % chunk_k:
+        pad = chunk_k - tk % chunk_k
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        tk = k.shape[2]
+    nk = tk // chunk_k
+
+    dev = q.device
+    qg = (q.float() * scale).reshape(b, hkv, group, tq, d)
+    kf, vf = k.float(), v.float()
+    q_pos = torch.arange(tq, device=dev) + q_offset
+    acc = torch.zeros((b, hkv, group, tq, d), dtype=torch.float32,
+                      device=dev)
+    m = torch.full((b, hkv, group, tq, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, hkv, group, tq, 1), dtype=torch.float32, device=dev)
+    for j in range(nk):
+        kj = kf[:, :, j * chunk_k:(j + 1) * chunk_k]
+        vj = vf[:, :, j * chunk_k:(j + 1) * chunk_k]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj)
+        k_pos = j * chunk_k + torch.arange(chunk_k, device=dev)
+        mask = (k_pos[None, :] < tk_valid).expand(tq, chunk_k)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vj)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l).reshape(b, hq, tq, d)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
+    """Single-token attention over a cache.
+
+    q: [B, Hq, 1, D]; caches: [B, Hkv, S, D]; cache_len: int OR int[B]
+    (per-sequence — continuous batching) number of valid positions (the
+    new token's kv must already be written at position cache_len - 1).
+    """
+    b, hq, _, d = q.shape
+    hkv, s_len = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    cl = torch.as_tensor(cache_len, device=q.device)
+    if cl.ndim == 1:
+        cl = cl[:, None, None, None]
+    qg = (q.float() * scale).reshape(b, hkv, group, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
+    k_pos = torch.arange(s_len, device=q.device)
+    mask = k_pos[None, None, None, :] < cl
+    if window is not None:
+        mask = mask & (k_pos[None, None, None, :] > cl - 1 - window)
+    s = torch.where(mask, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# --- full layer forward passes ------------------------------------------------
+
+
+def forward(params, x, cfg: AttnConfig, *, positions=None, kv_x=None,
+            return_kv: bool = False, backend: str = "kernel"):
+    """Training / prefill self-attention.
+
+    x: [B, T, d].  Returns [B, T, d], or (y, (k, v)) when ``return_kv``
+    (k/v post-rope, [B, Hkv, T, D] — prefill cache fill).  On a CUDA
+    tensor the attention is the flash kernel; on the CPU, or with
+    ``backend="ref"``, it is :func:`chunked_attention`.
+    """
+    ops._check_backend(backend)
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention waits for the encoder-decoder port "
+            "(ROADMAP.md §1, item 6)")
+    b, t, _ = x.shape
+    q, k, v = _split_qkv(params, x, cfg)
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if backend == "kernel" and x.device.type == "cuda":
+        out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+    else:
+        out = chunked_attention(q, k, v, causal=cfg.causal,
+                                window=cfg.window, chunk_k=cfg.chunk_k,
+                                q_offset=0)
+    y = out.transpose(1, 2).reshape(b, t, -1) @ params["wo"]
+    if cfg.use_bias:
+        y = y + params["bo"]
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def init_cache(batch: int, cfg: AttnConfig, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Sliding-window layers allocate only ``min(max_len, window)`` slots
+    and decode with a ring buffer."""
+    alloc = max_len if cfg.window is None else min(max_len, cfg.window)
+    shape = (batch, cfg.n_kv_heads, alloc, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(params, x, cache, cache_len, cfg: AttnConfig):
+    """One decode step.  x: [B, 1, d]; cache_len: int or int[B] tokens
+    already in the cache (the new token sits at index cache_len).
+
+    Writes the new k and v into ``cache`` in place; returns
+    (y [B, 1, d], cache).
+    """
+    b = x.shape[0]
+    s_alloc = cache["k"].shape[2]
+    ring = cfg.window is not None and s_alloc == cfg.window
+    cl = torch.as_tensor(cache_len, device=x.device).to(torch.int64)
+    per_seq = cl.ndim == 1  # continuous batching
+    q, k, v = _split_qkv(params, x, cfg)
+    if cfg.use_rope:
+        if per_seq:
+            q = apply_rope_per_batch(q, cl, cfg.rope_theta)
+            k = apply_rope_per_batch(k, cl, cfg.rope_theta)
+        else:
+            pos = cl.reshape(1)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+    # the JAX package's dynamic_update_slice clamps the slot the same way
+    slot = (cl % s_alloc if ring else cl).clamp(0, s_alloc - 1)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        if per_seq:
+            c[torch.arange(b, device=c.device), :, slot] = \
+                new[:, :, 0].to(c.dtype)
+        else:
+            c.index_copy_(2, slot.reshape(1), new.to(c.dtype))
+    if ring:
+        # ring holds exactly the window; mask only during warm-up
+        valid = torch.clamp(cl + 1, max=s_alloc)
+        out = decode_attention(q, cache["k"], cache["v"], valid, window=None)
+    else:
+        out = decode_attention(q, cache["k"], cache["v"], cl + 1,
+                               window=cfg.window)
+    y = out.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    if cfg.use_bias:
+        y = y + params["bo"]
+    return y, cache

@@ -157,7 +157,8 @@ def test_cuda_integrity_reserve_runs_a_kernel(cuda):
                                    "fused_snn_step": 0,
                                    "spike_process": 0,
                                    "lif_step": 0,
-                                   "stdp_update": 0}
+                                   "stdp_update": 0,
+                                   "flash_attention": 0}
     inten = torch.from_numpy(np.stack([r.intensities for r in reqs]))
     seeds = torch.tensor([r.seed for r in reqs])
     tt = torch.tensor([r.n_steps for r in reqs], dtype=torch.int32)
@@ -474,3 +475,116 @@ def test_cuda_step_path_equals_window_path(cuda, verb):
     _equal_all(step, window)
     _equal_all(step, cpu)
     assert step[-1].any()
+
+
+# --- the LM slice: flash attention (csrc/flash_attn.cu) ---------------------
+
+# (b, hq, hkv, d, tq, tk, causal, window): the chip smoke test's shapes
+# (gemma3-1b global and local, ragged lengths, GQA non-causal, the
+# starcoder2-3b width), then queries that are the last Tq of a longer
+# stream, rows masked everywhere (Tq > Tk), and the small head_dims
+FLASH_SHAPES = [
+    (1, 4, 1, 256, 2048, 2048, True, None),
+    (1, 4, 1, 256, 2048, 2048, True, 512),
+    (1, 4, 1, 256, 37, 37, True, 512),
+    (1, 4, 1, 256, 1000, 1000, True, 512),
+    (2, 8, 2, 128, 512, 512, False, None),
+    (1, 24, 2, 128, 1024, 1024, True, None),
+    (2, 4, 2, 64, 70, 200, True, 50),
+    (1, 2, 1, 32, 90, 60, True, None),
+    (3, 6, 3, 64, 129, 129, False, 17),
+]
+
+
+def _flash_operands(shape, dtype, dev, seed=0):
+    b, hq, hkv, d, tq, tk = shape[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                             ).to(dev, dtype)
+            for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_cuda_flash_attention_equals_plain_version(cuda, shape, dtype, tol):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_operands(shape, dtype, cuda)
+    causal, window = shape[6:]
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = flash_attention(q, k, v, causal=causal, window=window,
+                           backend="ref")
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:             # also within 1% of the output
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
+    if shape[4] > shape[5]:                 # rows masked everywhere
+        assert not got[:, :, :shape[4] - shape[5]].any()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_reads_strided_views(cuda):
+    """q, k, v as the transposed views of one fused projection."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, t, hq, hkv, d = 2, 100, 4, 2, 64
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, t, (hq + 2 * hkv) * d), dtype=np.float32)).to(cuda)
+    q, k, v = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    q, k, v = (x.reshape(b, t, -1, d).transpose(1, 2) for x in (q, k, v))
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, window=30)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           window=30)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_operands((1, 4, 2, 64, 16, 16), torch.float32, cuda)
+    with pytest.raises(ValueError):          # float16
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):          # head_dim 48
+        flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError):          # 3 query heads over 2 KV heads
+        flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError):          # last dimension strided
+        flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError):          # k on the CPU
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):          # window 0
+        flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-1b", "starcoder2-3b"])
+def test_cuda_lm_serving_equals_the_cpu_run(cuda, arch):
+    """reduced LM served greedily on the card (prefill through the flash
+    kernel, one launch per layer per prefill) and on the CPU: the same
+    tokens."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(get_config(arch))
+    assert Model(cfg, torch.float32, seed=None).device.type == "cuda"
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = Model(cfg, torch.float32, attn_chunk=16, device="cpu",
+                      seed=3).to(dev)
+        eng = ServingEngine(model, n_slots=2, max_len=64)
+        reqs = [Request(rid=i, prompt=list(range(1 + i, 30 + 7 * i)),
+                        max_new_tokens=6) for i in range(3)]
+        ops.reset_launch_counts()
+        eng.run(reqs)
+        assert all(r.done for r in reqs)
+        launches = ops.launch_counts()["flash_attention"]
+        assert launches == (cfg.n_layers * len(reqs) if dev == cuda else 0)
+        outs[dev.type] = [r.output for r in reqs]
+    assert outs["cuda"] == outs["cpu"]

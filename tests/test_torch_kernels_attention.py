@@ -1,0 +1,102 @@
+"""The port's flash attention on the CPU against the JAX package's.
+
+On a CPU tensor ``flash_attention`` runs its plain version, which must
+match the JAX package's Pallas kernel run in interpret mode at the
+shapes of ``tests/test_kernels_attention.py`` (plus head_dim 256, as in
+gemma3-1b) and both packages' dense ``attention_ref`` at ragged lengths
+the Pallas kernel cannot take.  atol = rtol = 2e-5, as in the JAX
+package's own test.  The CUDA kernel runs only on a card:
+``test_torch_cuda.py`` holds it against this plain version there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.ref import attention_ref as jattention_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import attention_ref
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(seed, b, hq, hkv, tq, tk, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+
+
+def _port(q, k, v, **kw):
+    return flash_attention(*map(torch.from_numpy, (q, k, v)), **kw).numpy()
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d", [
+    (1, 2, 2, 128, 64),
+    (2, 4, 2, 256, 64),   # GQA group 2
+    (1, 8, 1, 128, 128),  # MQA
+    (1, 4, 1, 128, 256),  # gemma3-1b's head_dim and group
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_matches_the_pallas_kernel(b, hq, hkv, t, d, causal):
+    q, k, v = _qkv(0, b, hq, hkv, t, t, d)
+    launches = ops.launch_counts()["flash_attention"]
+    got = _port(q, k, v, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == launches
+    want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=64,
+                  block_k=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_plain_flash_sliding_window_matches_the_pallas_kernel(window):
+    q, k, v = _qkv(1, 1, 4, 2, 256, 256, 64)
+    got = _port(q, k, v, causal=True, window=window)
+    want = jflash(*map(jnp.asarray, (q, k, v)), causal=True, window=window,
+                  block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("tq,tk,causal,window", [
+    (37, 37, True, 16), (100, 100, True, None), (23, 61, True, 9),
+    (45, 45, False, None), (29, 70, False, 12)])
+def test_plain_flash_at_ragged_lengths_matches_attention_ref(tq, tk, causal,
+                                                             window):
+    q, k, v = _qkv(2, 2, 4, 1, tq, tk, 32)
+    got = _port(q, k, v, causal=causal, window=window)
+    want = jattention_ref(*map(jnp.asarray, (q, k, v)), causal=causal,
+                          window=window)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    mine = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                         window=window)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(want), **TOL)
+
+
+def test_plain_flash_gives_zeros_for_rows_masked_everywhere():
+    """Tq > Tk: the first Tq - Tk queries sit before the stream starts."""
+    q, k, v = _qkv(3, 1, 2, 1, 20, 12, 32)
+    got = _port(q, k, v, causal=True)
+    assert not got[:, :, :8].any()
+    want = jattention_ref(*map(jnp.asarray, (q, k, v)), causal=True)
+    np.testing.assert_allclose(got[:, :, 8:], np.asarray(want)[:, :, 8:],
+                               **TOL)
+
+
+def test_plain_flash_bf16_close_to_f32():
+    q, k, v = _qkv(4, 1, 2, 2, 128, 128, 64)
+    got = flash_attention(*(torch.from_numpy(x).bfloat16()
+                            for x in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    want = jattention_ref(*(jnp.asarray(x).astype(jnp.bfloat16)
+                            .astype(jnp.float32) for x in (q, k, v)),
+                          causal=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_wrapper_takes_no_other_backend():
+    q, k, v = map(torch.from_numpy, _qkv(5, 1, 2, 2, 8, 8, 32))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, backend="tpu")

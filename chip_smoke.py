@@ -55,23 +55,35 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    mode's times beside the window path's, traces a short step-path run
    under ``torch.profiler``, and runs ``launch/quickstart.py`` on the
    card.
-8. The LM slice: the flash-attention kernel (``flash_attn.cu``) against
-   its plain version in float32 (atol = rtol = 1e-4) and bfloat16
-   (3e-2) at gemma3-1b's shapes (B 1, Hq 4, Hkv 1, D 256, T 2,048,
+8. The LM slice: the bf16 flash kernel's build checked (ptxas's line
+   for each head dim, no spills; ``HGMMA`` tensor-core instructions
+   counted in the SASS, ``cuobjdump -sass``), then the flash-attention
+   kernels (``flash_attn.cu``: ``flash_fwd_kernel`` for float32 on the
+   CUDA cores, ``flash_wgmma_kernel`` for bfloat16 on the tensor cores)
+   against their plain version in float32 (atol = rtol = 1e-4) and
+   bfloat16 (3e-2) at gemma3-1b's shapes (B 1, Hq 4, Hkv 1, D 256, T 2,048,
    causal, global and with the 512 window; T 37 and 1,000 with the
    window), GQA non-causal (B 2, Hq 8, Hkv 2, D 128, T 512) and the
    starcoder2-3b width (Hq 24, Hkv 2, D 128, T 1,024, causal); in
-   bfloat16 also within 1e-2 of the output's largest magnitude.  Timed
+   bfloat16 also within 1e-2 of the output's largest magnitude and
+   ||kernel - plain|| within 1e-2 of ||plain||; q, k and v as views of
+   one fused projection give the same output as contiguous ones.  Timed
    beside its bound, its plain version and
    ``scaled_dot_product_attention`` (the yardstick: the port never calls
-   it), all three as device time summed from the profiler.  Then gemma3-1b at full width in bfloat16, random weights from a
-   seed, served by ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy
-   requests of 37 to 2,048 prompt tokens, 32 new tokens each, with the
-   launch counts set to 0 before and read after (flash launches must be
-   26 x 8) and every plain attention function watched; prints prefill ms
-   by prompt length, decode step ms, tokens/s and the card's busy share
-   of a traced prefill and decode step.  Last, a float32 copy of the
-   weights (TF32 off): a 1,000-token prefill through the kernel and
+   it), all three as device time from the profiler (the kernel by its
+   own dtype's symbol, the other two every kernel and copy of a call),
+   with the achieved TFLOP/s and kernel/bound.  Then gemma3-1b at full
+   width in bfloat16, random weights from a seed, served by
+   ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy requests of 37
+   to 2,048 prompt tokens, 32 new tokens each, with the launch counts set
+   to 0 before and read after (flash launches must be 26 x 8) and every
+   plain attention function watched; prints prefill ms by prompt length,
+   decode step ms, tokens/s and the card's busy share of a traced
+   prefill and decode step.  Last, a 1,000-token prefill of that bf16
+   model through the kernel and through the plain attention give the
+   same greedy token, and logits no farther apart than twice the plain
+   bf16 prefill's distance from the float32 one; and a float32 copy of
+   the weights (TF32 off): the same prefill through the kernel and
    through the plain attention agree within 1e-3 of the logits' largest
    magnitude with the same greedy token, and 8 decode steps after a
    600-token prefill (the 512-slot rings wrap) match the prefill logits
@@ -79,9 +91,10 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 9. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Any failed phase raises, and the script exits non-zero without the last
-line.  It imports only ``repro_torch``, ``torch``, numpy and the
-standard library.
+Device times are the profiler's; where it records none in 5 fresh
+sessions, the phase fails.  Any failed phase raises, and the script
+exits non-zero without the last line.  It imports only
+``repro_torch``, ``torch``, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -140,62 +153,89 @@ def nvidia_smi(query: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def kernel_ms(fn, symbol: str, reps: int) -> tuple[float, str]:
-    """Device time of one launch of the CUDA kernel ``symbol``: the
-    profiler's kernel records over ``reps`` calls of ``fn``; where the
-    profiler records no device time, CUDA events around ``reps``
-    back-to-back calls (which then include any host gap)."""
+# fresh profiler sessions a device time is sought in before the phase
+# fails (the profiler now and then records no device time for a while)
+PROFILER_TRIES = 5
+# the range each call of ``call_device_ms`` runs in
+CALL_LABEL = "chip_smoke.call"
+
+
+def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
+                ) -> float:
+    """``read(prof)`` of the first profiler session over ``reps`` calls
+    of ``fn`` (after one warm-up call) that gives a time, in up to
+    ``PROFILER_TRIES`` fresh sessions; fails the phase where none does.
+    ``cpu`` records the host's operations too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if symbol in e.key and e.device_time_total > 0]
-    if rows:
-        count = sum(e.count for e in rows)
-        return sum(e.device_time_total for e in rows) / count / 1e3, \
-            "profiler"
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps, "events"
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = read(prof)
+        if ms is not None:
+            return ms
+    fail(f"the profiler recorded no device time of {what} in "
+         f"{PROFILER_TRIES} sessions")
 
 
-def call_device_ms(fn, reps: int) -> tuple[float, str]:
-    """Device time of one call of ``fn``: the self device time of every
-    CUDA kernel and copy the profiler records over ``reps`` calls, summed,
-    over ``reps`` (host dispatch between them left out, as ``kernel_ms``
-    leaves it out); where the profiler records no device time, CUDA events
-    around ``reps`` back-to-back calls."""
+def kernel_ms(fn, symbol: str, reps: int) -> float:
+    """Device time of one launch of the CUDA kernel ``symbol``: its
+    profiler records over ``reps`` calls of ``fn``, over the number of
+    records the profiler kept."""
+    def read(prof):
+        rows = [e for e in prof.key_averages()
+                if symbol in e.key and e.device_time_total > 0]
+        if rows:
+            return (sum(e.device_time_total for e in rows)
+                    / sum(e.count for e in rows) / 1e3)
+
+    return profiled_ms(fn, reps, symbol, read)
+
+
+def call_device_ms(fn, reps: int, what: str) -> float:
+    """Device time of one call of ``fn``: every CUDA kernel and copy the
+    call launched, summed (host dispatch between them left out, as
+    ``kernel_ms`` leaves it out), over the calls the profiler kept whole
+    (those of the ``reps`` with the most device records)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import record_function
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    def call():
+        with record_function(CALL_LABEL):
             fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    if dev_us > 0:
-        return dev_us / reps / 1e3, "profiler"
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps, "events"
+
+    def subtree(e):
+        yield e
+        for c in e.cpu_children:
+            yield from subtree(c)
+
+    def device_work(e) -> tuple[int, float]:
+        # (records, us) of the kernels and copies under event e, each
+        # once: the profiler lists an operation's kernels again under
+        # any event of the same id ("Activity Buffer Request"), and may
+        # list the range itself among them
+        by_id = {s.id: [k.duration for k in s.kernels if k.name != CALL_LABEL]
+                 for s in subtree(e)}
+        us = [d for ks in by_id.values() for d in ks]
+        return len(us), sum(us)
+
+    def read(prof):
+        calls = [device_work(e) for e in prof.events()
+                 if e.name == CALL_LABEL and e.device_type == DeviceType.CPU]
+        most = max((n for n, _ in calls), default=0)
+        if most:
+            kept = [us for n, us in calls if n == most]
+            return sum(kept) / len(kept) / 1e3
+
+    return profiled_ms(call, reps, what, read, cpu=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -277,13 +317,13 @@ def hold_and_time(kname: str, shape: str, call, symbol: str, reps: int,
             fail(f"{kname} at {shape} shape: output {i} differs from its "
                  f"plain version in {int((a != b).sum())} places")
     err = max_abs_err(got, want)
-    ms, how = kernel_ms(lambda: call("kernel"), symbol, reps)
+    ms = kernel_ms(lambda: call("kernel"), symbol, reps)
     call_ms = time_ms(lambda: call("kernel"), reps)
     plain_ms = time_ms(lambda: call("ref"), plain_reps)
     b_s, b_by = bound_of(got)
     out = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=1e3 * b_s, bound_by=b_by)
-    print(f"kernel {kname} @ {shape}: equal=True ms={ms} ({how}) "
+    print(f"kernel {kname} @ {shape}: equal=True ms={ms} "
           f"call_ms={call_ms} plain_ms={plain_ms} bound_ms={1e3 * b_s} "
           f"({b_by})", flush=True)
     return out, got
@@ -1180,11 +1220,19 @@ FLASH_SHAPES = (
     ("gqa-noncausal", 2, 8, 2, 128, 512, False, None),
     ("starcoder2-3b", 1, 24, 2, 128, 1024, True, None),
 )
-FLASH_DTYPES = ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 3e-2))
+# (dtype, name, atol = rtol, the kernel that runs it): f32 on the CUDA
+# cores, bf16 on the tensor cores (wgmma, TMA)
+FLASH_DTYPES = ((torch.float32, "f32", 1e-4, "flash_fwd_kernel"),
+                (torch.bfloat16, "bf16", 3e-2, "flash_wgmma_kernel"))
+FLASH_HEAD_DIMS = (32, 64, 128, 256)
 # bf16 also within this share of the output's largest magnitude: about
 # one bf16 rounding of the largest output (2**-8 of it), so a fault in
 # the bf16 loads or stores alone fails where 3e-2 would pass it
 FLASH_BF16_REL = 1e-2
+# and ||kernel - plain|| / ||plain|| within this: p and o each rounded to
+# bf16 once (2**-9 relative each) read a few 2**-9, so a fault confined
+# to a few rows or tiles (a dropped KV tile on long rows) fails here
+FLASH_BF16_NORM = 1e-2
 LM_PROMPTS = (37, 300, 511, 512, 513, 1000, 1536, 2048)
 LM_NEW_TOKENS = 32
 LM_TOL = 1e-3         # of the logits' largest magnitude, float32
@@ -1199,12 +1247,16 @@ def unmasked_pairs(tq: int, tk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def flash_flops(b, hq, d, t, causal, window) -> int:
+    """4 B Hq D flops per unmasked (query, key) pair: both products."""
+    return 4 * b * hq * d * unmasked_pairs(t, t, causal, window)
+
+
 def flash_bound(b, hq, hkv, d, t, causal, window, dtype
                 ) -> tuple[float, str]:
-    """Least time (s) of one call: 4 B Hq D flops per unmasked pair at
-    the card's peak for the dtype, against q, k, v and o crossing HBM
-    once."""
-    flops = 4 * b * hq * d * unmasked_pairs(t, t, causal, window)
+    """Least time (s) of one call: the flops at the card's peak for the
+    dtype, against q, k, v and o crossing HBM once."""
+    flops = flash_flops(b, hq, d, t, causal, window)
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     moved = (torch.finfo(dtype).bits // 8) * d * (2 * b * hq * t
                                                  + 2 * b * hkv * t)
@@ -1226,12 +1278,78 @@ def sdpa_call(q, k, v, causal: bool, window):
     return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def fused_views(q, k, v):
+    """q, k, v copied into one [B, T, (Hq + 2 Hkv) D] tensor and taken
+    back as the transposed views the model's fused projection gives
+    (``models/layers/attention.py``)."""
+    b, hq, t, d = q.shape
+    hkv = k.shape[1]
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, -1) for x in (q, k, v)],
+                    dim=-1)
+    q2, k2, v2 = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    return (q2.reshape(b, t, hq, d).transpose(1, 2),
+            k2.reshape(b, t, hkv, d).transpose(1, 2),
+            v2.reshape(b, t, hkv, d).transpose(1, 2))
+
+
+def check_flash_build() -> None:
+    """The bf16 kernel as built: ptxas's line for each head dim (no
+    spills allowed) and its tensor-core instructions (``HGMMA``) counted
+    in the library's SASS (none: fail)."""
+    from repro_torch.kernels import build
+
+    lib = build.library_path("flash_attn")
+    props, fn = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "flash_wgmma_kernel" in fn and (
+                "spill" in line or "registers" in line):
+            props.setdefault(fn, []).append(line.split(":", 1)[-1].strip()
+                                            if "registers" in line
+                                            else line.strip())
+    dims = {int(re.search(r"ILi(\d+)E", f).group(1)): "; ".join(v)
+            for f, v in props.items()}
+    for d in FLASH_HEAD_DIMS:
+        print(f"ptxas flash_wgmma_kernel<{d}>: {dims.get(d)}", flush=True)
+    if sorted(dims) != list(FLASH_HEAD_DIMS):
+        fail(f"ptxas reported flash_wgmma_kernel at head dims "
+             f"{sorted(dims)}, expected {FLASH_HEAD_DIMS}")
+    spills = [d for d, line in dims.items()
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        fail(f"flash_wgmma_kernel spills registers at head dims {spills}")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma = collections.Counter()
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    per_dim = {d: sum(n for f, n in hgmma.items()
+                      if f"flash_wgmma_kernelILi{d}E" in f)
+               for d in FLASH_HEAD_DIMS}
+    print(f"sass: HGMMA instructions in flash_wgmma_kernel by head dim "
+          f"{per_dim}; in flash_fwd_kernel "
+          f"{sum(n for f, n in hgmma.items() if 'flash_fwd_kernel' in f)}",
+          flush=True)
+    if not all(per_dim.values()):
+        fail(f"flash_wgmma_kernel has no HGMMA instruction at some head "
+             f"dim: {per_dim}")
+
+
 def phase_flash_kernel() -> dict:
-    """Phase 8a: the flash kernel against its plain version on the card
-    at each shape in both dtypes, then timed beside its bound, the plain
-    version and SDPA."""
+    """Phase 8a: the bf16 kernel's build checked, then the flash kernels
+    against their plain version on the card at each shape in both dtypes,
+    then timed (each dtype by its own kernel's profiler records) beside
+    the bound, the plain version and SDPA."""
     from repro_torch.kernels.flash_attention import flash_attention
 
+    check_flash_build()
     dev = torch.device("cuda")
     out = {}
     for name, b, hq, hkv, d, t, causal, window in FLASH_SHAPES:
@@ -1239,7 +1357,7 @@ def phase_flash_kernel() -> dict:
         base = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                 .to(dev) for s in ((b, hq, t, d), (b, hkv, t, d),
                                    (b, hkv, t, d))]
-        for dtype, dname, tol in FLASH_DTYPES:
+        for dtype, dname, tol, symbol in FLASH_DTYPES:
             q, k, v = (x.to(dtype) for x in base)
             kw = dict(causal=causal, window=window)
             got = flash_attention(q, k, v, **kw)
@@ -1247,6 +1365,8 @@ def phase_flash_kernel() -> dict:
             want = flash_attention(q, k, v, backend="ref", **kw)
             err = float((got.float() - want.float()).abs().max())
             top = float(want.float().abs().max())
+            norm = float(torch.linalg.vector_norm(got.float() - want.float())
+                         / torch.linalg.vector_norm(want.float()))
             if not torch.allclose(got.float(), want.float(), atol=tol,
                                   rtol=tol):
                 fail(f"flash_attention at {name} {dname}: max |kernel - "
@@ -1255,26 +1375,37 @@ def phase_flash_kernel() -> dict:
                 fail(f"flash_attention at {name} {dname}: max |kernel - "
                      f"plain| {err} exceeds {FLASH_BF16_REL} of the "
                      f"output's largest magnitude {top}")
+            if dtype == torch.bfloat16 and norm > FLASH_BF16_NORM:
+                fail(f"flash_attention at {name} {dname}: ||kernel - plain||"
+                     f" / ||plain|| = {norm} exceeds {FLASH_BF16_NORM}")
+            if not torch.equal(flash_attention(*fused_views(q, k, v), **kw),
+                               got):
+                fail(f"flash_attention at {name} {dname}: the views of a "
+                     f"fused projection give another output than "
+                     f"contiguous q, k, v")
             lib = sdpa_call(q, k, v, causal, window)
             lib_err = float((lib().float() - want.float()).abs().max())
-            ms, how = kernel_ms(lambda: flash_attention(q, k, v, **kw),
-                                "flash_fwd_kernel", 20)
+            ms = kernel_ms(lambda: flash_attention(q, k, v, **kw), symbol, 20)
             plain = functools.partial(flash_attention, q, k, v,
                                       backend="ref", **kw)
-            plain_ms, plain_how = call_device_ms(plain, 5)
-            library_ms, lib_how = call_device_ms(lib, 20)
+            plain_ms = call_device_ms(plain, 5, f"the plain flash_attention "
+                                      f"at {name} {dname}")
+            library_ms = call_device_ms(lib, 20, f"sdpa at {name} {dname}")
             plain_call_ms, library_call_ms = time_ms(plain, 5), \
                 time_ms(lib, 20)
             b_s, b_by = flash_bound(b, hq, hkv, d, t, causal, window, dtype)
             shape = (f"B={b} Hq={hq} Hkv={hkv} D={d} T={t} causal={causal} "
                      f"window={window} {dname}")
             print(f"kernel flash_attention @ {name} ({shape}): within "
-                  f"{tol} max_abs_err={err} (largest |plain| {top}) "
-                  f"ms={ms} ({how}) plain_ms={plain_ms} ({plain_how}; "
-                  f"{plain_call_ms} a call with its host dispatch) "
-                  f"library_ms={library_ms} ({lib_how}; {library_call_ms} "
-                  f"a call; sdpa, max |sdpa - plain| {lib_err}) "
-                  f"bound_ms={1e3 * b_s} ({b_by}); kernel/sdpa "
+                  f"{tol} max_abs_err={err} (largest |plain| {top}; "
+                  f"||kernel - plain|| / ||plain|| {norm}; views of a fused "
+                  f"projection equal) "
+                  f"ms={ms} plain_ms={plain_ms} ({plain_call_ms} a call "
+                  f"with its host dispatch) library_ms={library_ms} "
+                  f"({library_call_ms} a call; sdpa, max |sdpa - plain| "
+                  f"{lib_err}) bound_ms={1e3 * b_s} ({b_by}); {symbol} "
+                  f"{flash_flops(b, hq, d, t, causal, window) / ms / 1e9} "
+                  f"TFLOP/s, kernel/bound {ms / (1e3 * b_s)}, kernel/sdpa "
                   f"{ms / library_ms}", flush=True)
             out[f"{name}-{dname}"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1399,21 +1530,53 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_lm_correctness(model) -> None:
-    """Phase 8c: a float32 copy of the slice's weights, TF32 off: the
-    kernel's prefill against the plain attention's, and teacher-forced
-    decode against prefill, within ``LM_TOL``."""
+    """Phase 8c: the slice's own bf16 model, the kernel's prefill against
+    the plain attention's: the same greedy token, and within twice what
+    bf16 itself moves the logits (the plain bf16 prefill against the
+    float32 one).
+    Then a float32 copy of the weights, TF32 off: the kernel's prefill
+    against the plain attention's, and teacher-forced decode against
+    prefill, within ``LM_TOL``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    m32 = model.cast(torch.float32)
-    vocab = m32.cfg.vocab_size
+    vocab = model.cfg.vocab_size
     rng = np.random.default_rng(15)
     dev = torch.device("cuda")
+    prompt = torch.from_numpy(rng.integers(0, vocab, (1, 1000))).to(dev)
+
+    def prefill_both(m):
+        """Last-token logits of the prompt through the kernel, then
+        through the plain attention."""
+        kern, _, _ = m.prefill(prompt, 1024)
+        m.attn_backend = "ref"
+        plain, _, _ = m.prefill(prompt, 1024)
+        m.attn_backend = "kernel"
+        return kern.float(), plain.float()
+
     with torch.inference_mode():
-        prompt = torch.from_numpy(rng.integers(0, vocab, (1, 1000))).to(dev)
-        kern, _, _ = m32.prefill(prompt, 1024)
-        m32.attn_backend = "ref"
-        plain, _, _ = m32.prefill(prompt, 1024)
-        m32.attn_backend = "kernel"
+        kern16, plain16 = prefill_both(model)
+        m32 = model.cast(torch.float32)
+        kern, plain = prefill_both(m32)
+
+        def dist(a, b) -> float:
+            return float((a - b).abs().max() / plain.abs().max())
+
+        # bf16's own reach is how far the plain bf16 prefill lies from
+        # the f32 one.  A kernel whose bf16 prefill lies no farther from
+        # the f32 one is within twice that of the plain bf16 prefill (the
+        # triangle inequality): that is the limit.
+        err16, bf16_err = dist(kern16, plain16), dist(plain16, plain)
+        same16 = int(kern16.argmax()) == int(plain16.argmax())
+        top2 = plain16[0].topk(2).values
+        print(f"lm check: bf16 prefill of 1000 tokens, kernel vs plain "
+              f"attention: max |diff| / max |f32 logit| = {err16} (limit "
+              f"twice the plain bf16 prefill's from the f32 one, "
+              f"{bf16_err}; the kernel's from the f32 one "
+              f"{dist(kern16, plain)}), greedy token equal: {same16} "
+              f"(plain's top two logits {top2.tolist()})", flush=True)
+        if err16 > 2 * bf16_err or not same16:
+            fail("the bf16 prefill through the kernel differs from the "
+                 "plain attention's by more than bf16's own rounding allows")
         err = rel_err(kern, plain)
         same = int(kern.argmax()) == int(plain.argmax())
         print(f"lm check: f32 prefill of 1000 tokens, kernel vs plain "

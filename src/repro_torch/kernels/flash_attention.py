@@ -12,7 +12,10 @@ h // (Hq // Hkv); the masks are causal and a sliding ``window``; a row
 masked everywhere gives zeros.  The kernel takes any Tq and Tk (it masks
 the ragged edge itself), bf16 or float32, head_dim 32, 64, 128 or 256,
 and q, k, v with any strides whose last one is 1 (the transposed views of
-a fused qkv projection).  This is the counterpart of the JAX package's
+a fused qkv projection).  bf16 runs on the tensor cores and reads its
+operands with TMA, which needs each base address 16-byte aligned and
+each stride a whole number of 16 bytes (8 elements); float32 runs on the
+CUDA cores in full float32.  This is the counterpart of the JAX package's
 Pallas ``flash_attention``, which needs Tq and Tk in whole blocks.
 
 The wrapper counts its launches in ``flash_attention.launches``
@@ -70,6 +73,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"grid's {_MAX_GRID} per launch")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be >= 1, got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
+                raise ValueError(
+                    f"{what}: bf16 {name} must start on 16 bytes and have "
+                    f"strides of whole 16 bytes (TMA), got address "
+                    f"{t.data_ptr():#x} strides {t.stride()}")
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """Element strides of batch, head and row as the kernel reads them.
+    A dimension of size 1 is never stepped, so its stride is set to that
+    of a packed layout (torch may give it any value; TMA needs whole 16
+    bytes)."""
+    st = list(t.stride()[:3])
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = t.shape[i + 1] * (st[i + 1] if i < 2 else 1)
+    return st
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,7 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = ops._libraries()["flash_attn"]
-    smem = lib.flash_attn_smem_bytes(d)
+    smem = lib.flash_attn_smem_bytes(d, _DTYPES[q.dtype])
     limit = getattr(torch.cuda.get_device_properties(q.device),
                     "shared_memory_per_block_optin", None)
     if limit is not None and smem > limit:
@@ -99,8 +121,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     ops._launch("flash_attention", "flash_attn", "flash_attn_forward",
                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], b, hq, hkv, tq, tk, d, int(causal),
+                out.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+                b, hq, hkv, tq, tk, d, int(causal),
                 0 if window is None else window, _DTYPES[q.dtype], scale)
     flash_attention.launches += 1
     return out

@@ -76,7 +76,7 @@ _SIGNATURES = {
                  ("snn_fused_step", "pppppppppp iiiiiiiiii p", "i")),
     "flash_attn": (("flash_attn_forward", "pppp lllllllll iiiiiiiii f p",
                     "i"),
-                   ("flash_attn_smem_bytes", "i", "l")),
+                   ("flash_attn_smem_bytes", "ii", "l")),
 }
 _ERROR_STRING = {"snn_infer": "snn_error_string",
                  "snn_train": "snn_train_error_string",

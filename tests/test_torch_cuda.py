@@ -482,7 +482,10 @@ def test_cuda_step_path_equals_window_path(cuda, verb):
 # (b, hq, hkv, d, tq, tk, causal, window): the chip smoke test's shapes
 # (gemma3-1b global and local, ragged lengths, GQA non-causal, the
 # starcoder2-3b width), then queries that are the last Tq of a longer
-# stream, rows masked everywhere (Tq > Tk), and the small head_dims
+# stream, rows masked everywhere (Tq > Tk), and the small head_dims; then
+# the bf16 kernel's edges: GQA group 1 at D 256 and B 2, Tq > Tk at D 256,
+# windows shorter than one 64-row KV tile (17) and longer than Tk, group
+# 12 at D 32, one query over one key, and one whole tile
 FLASH_SHAPES = [
     (1, 4, 1, 256, 2048, 2048, True, None),
     (1, 4, 1, 256, 2048, 2048, True, 512),
@@ -493,6 +496,13 @@ FLASH_SHAPES = [
     (2, 4, 2, 64, 70, 200, True, 50),
     (1, 2, 1, 32, 90, 60, True, None),
     (3, 6, 3, 64, 129, 129, False, 17),
+    (2, 2, 2, 256, 130, 130, True, None),
+    (1, 4, 1, 256, 100, 70, True, None),
+    (1, 4, 1, 256, 200, 200, True, 17),
+    (1, 4, 2, 128, 150, 150, True, 1000),
+    (2, 12, 1, 32, 65, 65, True, 17),
+    (1, 2, 1, 64, 1, 1, True, None),
+    (1, 8, 8, 128, 64, 64, False, None),
 ]
 
 
@@ -546,6 +556,39 @@ def test_cuda_flash_attention_reads_strided_views(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_flash_attention_reads_strided_bf16_views(cuda):
+    """bf16 q, k, v as TMA reads them: the transposed views of gemma3-1b's
+    fused projection (4 query heads and 1 KV head of 256, ragged T),
+    equal to the call on contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, t, hq, hkv, d = 2, 300, 4, 1, 256
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, t, (hq + 2 * hkv) * d), dtype=np.float32)).to(cuda,
+                                                           torch.bfloat16)
+    q, k, v = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    q, k, v = (x.reshape(b, t, -1, d).transpose(1, 2) for x in (q, k, v))
+    assert not q.is_contiguous() and not v.is_contiguous()
+    for window in (None, 100):
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_is_deterministic(cuda, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_operands((1, 24, 2, 128, 1024, 1024), dtype, cuda)
+    first = flash_attention(q, k, v)
+    second = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
     q, k, v = _flash_operands((1, 4, 2, 64, 16, 16), torch.float32, cuda)
@@ -561,6 +604,16 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):          # window 0
         flash_attention(q, k, v, window=0)
+    # bf16 goes through TMA: a base on 16 bytes and strides of whole 16
+    # bytes, or a ValueError (never a copy)
+    wide = torch.zeros((1, 4, 16, 72), dtype=torch.bfloat16, device=cuda)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    with pytest.raises(ValueError):          # base 2 bytes off
+        flash_attention(wide[..., 1:65], kb, vb)
+    with pytest.raises(ValueError):          # rows 136 bytes apart
+        flash_attention(qb, kb, torch.zeros(
+            (1, 2, 16, 68), dtype=torch.bfloat16, device=cuda)[..., :64])
+    assert flash_attention(wide[..., 8:72], kb, vb).shape == qb.shape
 
 
 @pytest.mark.gpu

@@ -100,3 +100,28 @@ def test_wrapper_takes_no_other_backend():
     q, k, v = map(torch.from_numpy, _qkv(5, 1, 2, 2, 8, 8, 32))
     with pytest.raises(ValueError):
         flash_attention(q, k, v, backend="tpu")
+
+
+def _fused(t: int, hq: int, hkv: int, d: int):
+    """q, k as the transposed views of one fused qkv projection."""
+    qkv = torch.zeros(1, t, (hq + 2 * hkv) * d)
+    q, k, _ = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    return (q.reshape(1, t, hq, d).transpose(1, 2),
+            k.reshape(1, t, hkv, d).transpose(1, 2))
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: _fused(5, 4, 1, 256)[0], [1024, 256, 1536]),
+    (lambda: _fused(5, 4, 1, 256)[1], [7680, 7680, 1536]),
+    (lambda: torch.zeros(2, 3, 8, 64)[:, :, 3:4], [1536, 512, 64]),
+    (lambda: torch.empty_strided((1, 2, 4, 32), (3, 128, 32, 1)),
+     [256, 128, 32]),
+], ids=["fused-q", "fused-k-one-head", "one-row", "odd-batch-stride"])
+def test_kernel_strides_are_the_callers_with_size_one_dims_packed(make,
+                                                                   want):
+    """The batch, head and row strides the wrapper hands the kernel: the
+    caller's, except that a dimension of size 1, never stepped, takes a
+    packed layout's (TMA needs whole 16 bytes whatever torch gives it)."""
+    from repro_torch.kernels.flash_attention import _strides
+
+    assert _strides(make()) == want

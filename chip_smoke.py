@@ -18,14 +18,20 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    kernels: "train-parallel" (B = 4 streams of 10 neurons, 784 inputs,
    T = 72, ltp_prob [16, 1023, 1023, 1023]: the trainer's parallel
    launch at 784-40), "train-active" (B = 1: active mode's launch) and
-   "large" (B = 4, 65,536 inputs, 1,000 neurons, T = 72); the read-only
-   windows at "train-active" and "large" with B = 1.  Step kernels (one
+   "large" (B = 4, 65,536 inputs, 1,000 neurons, T = 72); the stream form
+   of the in-kernel encode kernel (``train_stream_batch_encode``, N
+   samples a launch: 8 at the paper's shapes, the trainer's own digits
+   shared by every block, 2 at large), timed per launch and per sample;
+   the read-only windows at "train-active" and "large" with B = 1.  Step
+   kernels (one
    RV-SNN instruction cycle each): "step-parallel" (one cycle of the
    trainer's parallel launch, B = 4 streams of 10 neurons, 784 inputs),
    "step-active" (one stream), "step-infer" (B = 32 samples against one
    shared 40-neuron bank, SU idle), "large" (1,000 neurons of 65,536
    inputs) and the quickstart's (n = 40, w = 25); the unfused
-   SPU -> NU -> SU chain must equal the fused step.
+   SPU -> NU -> SU chain must equal the fused step; at "step-parallel" a
+   72-step window recorded as one CUDA graph, with dependent launches (as
+   the engine records it) and without, timed per step and held equal.
 4. The serving slice: Wenquxing 22A intensity requests served through
    the port's ``SNNServingEngine`` on the card; every request must be
    SERVED, with no degradation, and equal to the plain version's counts
@@ -41,9 +47,12 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    and a read-only pass (an inference-only plan's ``train`` verb), with
    the launch counts set to 0 before and read after; then the same runs
    with the plain versions on the CPU, which must give equal weights
-   and class maps.  Prints samples/s, ms per presented sample, the test
-   accuracy on 200 digits (not gated) and the launch counts, then one
-   parallel-mode run under ``torch.profiler``.
+   and class maps.  Prints samples/s, ms per sample, the trainer's
+   presentations (samples x blocks) and ms per presentation, the
+   training launches (one stream launch an epoch of a block, or of all
+   blocks in parallel mode), the test accuracy on 200 digits (not gated)
+   and the launch counts, then one parallel-mode run under
+   ``torch.profiler``.
 7. The step slice: the same training at 784-40 (``WENQUXING_22A``,
    host encode, one epoch of 256 digits, both train modes) with
    ``cycle_backend="step"`` (one fused RV-SNN step launch per cycle),
@@ -51,9 +60,11 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    predictions on 200 test digits), with the launch counts set to 0
    before and read after and every plain version watched; one
    presentation through the fine-grained instructions (``snn.sp``,
-   ``snn.nu``, ``snn.su``) held equal to ``snn.step``.  Prints each
-   mode's times beside the window path's, traces a short step-path run
-   under ``torch.profiler``, and runs ``launch/quickstart.py`` on the
+   ``snn.nu``, ``snn.su``) held equal to ``snn.step``.  The step path
+   replays one CUDA graph per window key (at least one replay required).
+   Prints each mode's times beside the window path's, the graphs recorded
+   and replayed, traces a short step-path run under ``torch.profiler``
+   (the card's busy share), and runs ``launch/quickstart.py`` on the
    card.
 8. The LM slice: the bf16 flash kernel's build checked (ptxas's line
    for each head dim, no spills; ``HGMMA`` tensor-core instructions
@@ -407,6 +418,67 @@ def train_bound(rates: Rates, *, b: int, n: int, words: int, n_in: int,
     return roofline(rates, moved, ints, popc)
 
 
+def stream_bound(rates: Rates, *, b: int, n: int, words: int, n_in: int,
+                 t_steps: int, n_samples: int, fired: int, draws: int,
+                 per_sample_bytes: int) -> tuple[float, str]:
+    """Least time (s) of one stream-kernel launch: B streams of N samples.
+    The state (weights and LFSR in and out, v out) crosses HBM once, and
+    ``per_sample_bytes`` of intensities, seeds, teacher currents and
+    counts for each sample, against the integer work of this run: SPU and
+    LIF for every (sample, stream, cycle, neuron), one hash per input of
+    each of the ``draws`` distinct (sample, stream) windows and cycle
+    (streams that share a sample's intensities and seed share its
+    window), and the STDP pass over the words of each of the ``fired``
+    (row, cycle) pairs."""
+    moved = 4 * b * n * words * 4 + b * n * 4 + 4 * b
+    moved += n_samples * per_sample_bytes
+    cycles = n_samples * b * t_steps
+    popc = cycles * n * words + fired * words
+    ints = (2 * cycles * n * words + cycles * n * (LIF_OPS + 1)
+            + draws * t_steps * n_in * HASH_OPS + fired * words * SU_OPS)
+    return roofline(rates, moved, ints, popc)
+
+
+def stream_operands(o: dict, n_samples: int, shape: str) -> dict:
+    """N samples for the stream kernel at one of phase 3's shapes: at the
+    paper's width the trainer's own stream (preprocessed digits, one
+    sample and seed shared by every block: a stream stride of 0, teacher
+    currents from the labels); "large" synthetic, per stream."""
+    from repro_torch.core.encoder import quantize_intensities, sample_seeds
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    b, n, n_in = o["b"], o["n"], o["n_in"]
+    dev = o["weights"].device
+    if shape == "large":
+        rng = np.random.default_rng(0x57EA)
+        inten = rng.integers(0, 256, (n_samples, b, n_in), dtype=np.uint8)
+        inten[rng.random(inten.shape) < 0.6] = 0
+        inten = torch.from_numpy(inten)
+        labels = torch.from_numpy(rng.integers(0, n, (n_samples, b)))
+        seeds = torch.from_numpy(rng.integers(-2**31, 2**31, (n_samples, b))
+                                 .astype(np.int32))
+        shared = False
+    else:
+        x, labels = preprocessed_digits(n_samples, seed=9)
+        inten = quantize_intensities(x)[:, None].expand(n_samples, b, n_in)
+        labels = torch.as_tensor(labels)[:, None].expand(n_samples, b)
+        seeds = sample_seeds(0x22A, n_samples)
+        shared = True
+    onehot = torch.nn.functional.one_hot(labels.to(torch.int64) % n,
+                                         n).to(torch.int32)
+    teach = onehot * 64 + (1 - onehot) * -1024
+    if shared:                      # one copy on the card, read by every block
+        inten = inten[:, :1].to(dev).expand(n_samples, b, n_in)
+        teach = teach[:, :1].to(dev).expand(n_samples, b, n)
+    else:
+        inten, teach = inten.to(dev), teach.to(dev)
+    streams = 1 if shared else b
+    return dict(inten=inten, teach=teach, seeds=seeds.to(dev),
+                n_samples=n_samples, draws=n_samples * streams,
+                per_sample_bytes=streams * (n_in + 4 * n)
+                + seeds[0].numel() * 4 + b * n * 4)
+
+
 def train_operands(shape: str, dev: torch.device) -> dict:
     """Inputs of the training kernels at one of phase 3's shapes.  The
     paper shapes start where the trainer starts (all-ON rows, LFSR lanes
@@ -501,6 +573,30 @@ def phase_train_kernels(rates: Rates) -> dict:
                      f"disagree at {shape}")
         print(f"train kernels @ {shape}: fired (row, cycle) pairs "
               f"{out[('train_window_batch', shape)]['fired']}", flush=True)
+        # the stream form: N samples per launch, weights and LFSR resident
+        s = stream_operands(o, 2 if shape == "large" else 8, shape)
+        timing, _ = hold_and_time(
+            "train_stream_batch_encode",
+            f"{shape} (N={s['n_samples']}, B={b}, n_in={n_in}, n={n}, "
+            f"T={t})",
+            lambda be, s=s: ops.train_stream_batch_encode(
+                o["weights"], s["inten"], s["seeds"], o["lfsr"], s["teach"],
+                n_steps=t, ltp_prob=o["ltp"], backend=be, **kw),
+            "train_window_enc_kernel", 20 if shape == "large" else 100, 2,
+            lambda g, s=s, b=b, n=n, words=words, n_in=n_in, t=t:
+            stream_bound(rates, b=b, n=n, words=words, n_in=n_in,
+                         t_steps=t, n_samples=s["n_samples"],
+                         fired=int(g[2].sum()), draws=s["draws"],
+                         per_sample_bytes=s["per_sample_bytes"]))
+        timing.update(samples=s["n_samples"],
+                      ms_per_sample=timing["ms"] / s["n_samples"],
+                      bound_ms_per_sample=timing["bound_ms"]
+                      / s["n_samples"])
+        out[("train_stream_batch_encode", shape)] = timing
+        print(f"stream kernel @ {shape}: {timing['ms_per_sample']} ms per "
+              f"sample (one-sample launch "
+              f"{out[('train_window_batch_encode', shape)]['ms']} ms)",
+              flush=True)
         if shape == "train-parallel":
             continue
         # the read-only windows: one stream, SU idle
@@ -718,14 +814,14 @@ def train_runs(device, x, labels, tx, tlabels, n_host: int) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        # one train-kernel launch per presented sample (a parallel launch
-        # presents the sample to every block at once)
-        presented = sum(ops.launch_counts()[k] - before[k]
-                        for k in TRAIN_KERNELS[:2])
+        # presentations are (sample, block) pairs, counted by the
+        # trainer; a stream launch presents a whole epoch
+        launches = sum(ops.launch_counts()[k] - before[k]
+                       for k in TRAIN_KERNELS[:2])
         acc = (accuracy(model, labels=tlabels, intensities=tinten,
                         seeds=tseeds) if c.encode == "kernel" else None)
         runs[name] = dict(model=model, wall=wall, acc=acc, n=n,
-                          presented=presented)
+                          presented=model.presentations, launches=launches)
     # read-only pass: block 0 of the parallel model, SU idle, no teacher;
     # its window counts must equal the infer verb's
     model = runs["parallel"]["model"]
@@ -785,11 +881,13 @@ def phase_train():
         r = card[name]
         blocks = r["model"].weights.shape[0] // 10
         print(f"train {name}: {r['n']} samples x 1 epoch in {r['wall']} s "
-              f"= {r['n'] / r['wall']} samples/s; {r['presented']} "
-              f"presentations = {r['presented'] / r['wall']} per s, "
-              f"{1e3 * r['wall'] / r['presented']} ms each; {blocks} "
-              f"blocks; test accuracy {r['acc']} (CPU plain run "
-              f"{host[name]['wall']} s)", flush=True)
+              f"= {r['n'] / r['wall']} samples/s, {1e3 * r['wall'] / r['n']}"
+              f" ms per sample; {r['presented']} presentations (samples x "
+              f"blocks, from the trainer) = {r['presented'] / r['wall']} "
+              f"per s, {1e3 * r['wall'] / r['presented']} ms each; "
+              f"{r['launches']} training launches; {blocks} blocks; test "
+              f"accuracy {r['acc']} (CPU plain run {host[name]['wall']} s)",
+              flush=True)
     print(f"train: launches {launches}; CPU plain runs {cpu_s} s; "
           f"read-only spikes {int(ro['infer'].sum())}; equal to the CPU "
           f"plain runs: weights, class maps, accuracy, read-only counts",
@@ -950,6 +1048,46 @@ def step_operands(shape: str, dev: torch.device) -> dict:
                 banks=b, train=True)
 
 
+def step_graph_ms(o: dict, t_steps: int = 72) -> dict:
+    """Device time per step of a window of ``t_steps`` fused steps at one
+    of phase 3's step shapes, recorded as one CUDA graph as the engine
+    records it (each step after the first a programmatic dependent of the
+    one before) and, beside it, with every step launched as usual; the
+    two must leave equal weights, v and LFSR.  CUDA events around each
+    replay, the median of 50, over ``t_steps``."""
+    from repro_torch.kernels import ops
+
+    dev = o["weights"].device
+    rng = np.random.default_rng(0x6A9)
+    shape = (t_steps, o["b"], o["words"])
+    wins = torch.from_numpy(
+        (rng.integers(0, 2**32, shape, dtype=np.uint32)
+         & rng.integers(0, 2**32, shape, dtype=np.uint32)).view(np.int32)
+    ).to(dev)
+
+    def window(dependent: bool):
+        w, v, lanes = o["weights"], o["v"], o["lfsr"]
+        for t in range(t_steps):
+            w, v, _, lanes = ops.fused_snn_step(
+                w, wins[t], v, lanes, o["teach"], ltp_prob=o["ltp"],
+                dependent=dependent and t > 0, **o["kw"])
+        return w, v, lanes
+
+    out, states = {}, {}
+    for dependent in (True, False):
+        window(False)                     # warm-up outside the graph
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            res = window(dependent)
+        out[dependent] = time_ms(graph.replay, 50) / t_steps
+        states[dependent] = [x.clone() for x in res]
+        del graph
+    if not all(torch.equal(a, c) for a, c in zip(*states.values())):
+        fail("the step graph with dependent launches differs from the one "
+             "without")
+    return dict(graph_step_ms=out[True], graph_step_ms_serial=out[False])
+
+
 def phase_step_kernels(rates: Rates) -> dict:
     """Phase 3, the per-cycle RV-SNN step kernels against their plain
     versions, and the unfused SPU -> NU -> SU chain against the fused
@@ -1018,6 +1156,14 @@ def phase_step_kernels(rates: Rates) -> dict:
         print(f"step kernels @ {shape}: fired rows {int(fused[2].sum())}"
               + ("; unfused chain == fused step" if "lif_step" in got
                  else ""), flush=True)
+        if shape == "step-parallel":
+            out[("fused_snn_step", shape)].update(step_graph_ms(o))
+            print(f"fused_snn_step @ {shape}: a 72-step window as one CUDA "
+                  f"graph, per step: dependent launches "
+                  f"{out[('fused_snn_step', shape)]['graph_step_ms']} ms, "
+                  f"serial launches "
+                  f"{out[('fused_snn_step', shape)]['graph_step_ms_serial']}"
+                  f" ms (equal state)", flush=True)
     return out
 
 
@@ -1126,7 +1272,10 @@ def phase_step_slice() -> dict:
     tx, tlabels = preprocessed_digits(n_test, seed=2)
     tst = poisson_encode_batch(torch.Generator().manual_seed(99),
                                torch.from_numpy(tx), t_steps).cuda()
+    from repro_torch.engine.engine import step_graph_stats
+
     window = step_slice_runs("window", x, labels, tst)
+    graphs = step_graph_stats()
     ops.reset_launch_counts()
     with counting_plain_versions() as plain:
         step = step_slice_runs("step", x, labels, tst)
@@ -1135,8 +1284,11 @@ def phase_step_slice() -> dict:
                                       int(tlabels[0]))
         program = {k: v - before[k] for k, v in ops.launch_counts().items()}
     launches = ops.launch_counts()
+    graphs = {k: v - graphs.get(k, 0) for k, v in step_graph_stats().items()}
     if sum(plain.values()):
         fail(f"the step slice reached plain versions: {dict(plain)}")
+    if not graphs["replays"]:
+        fail(f"the step slice replayed no CUDA graph: {graphs}")
 
     def only(counts: dict, **want) -> bool:
         """Whether exactly the kernels in ``want`` launched, as often."""
@@ -1183,10 +1335,11 @@ def phase_step_slice() -> dict:
               f"presentation, {presented + classified} window launches; "
               f"step/window {ms['step'] / ms['window']}; test accuracy "
               f"{acc}; equal: weights, class map, predictions", flush=True)
-    print(f"step slice: launches {launches}; RV-SNN program "
-          f"(sp/nu/su vs step, one presentation) equal, {program_fired} "
-          f"(row, cycle) pairs fired; plain versions reached: 0",
-          flush=True)
+    print(f"step slice: launches {launches}; window graphs recorded "
+          f"{graphs['recorded']}, replayed {graphs['replays']} times (kept "
+          f"{step_graph_stats()['kept']}); RV-SNN program (sp/nu/su vs "
+          f"step, one presentation) equal, {program_fired} (row, cycle) "
+          f"pairs fired; plain versions reached: 0", flush=True)
     return launches
 
 
@@ -1698,6 +1851,25 @@ def main() -> None:
                           "bound_by")}
         if launches is serve_launches:
             entry["train_launches"] = train_launches[kname]
+        if kname == "train_window_batch_encode":
+            # the trainer's launches are the stream form: its time per
+            # launch of 8 samples leads, the one-sample launch beside it
+            keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "samples", "ms_per_sample", "bound_ms_per_sample")
+            stream = {shape: {k: t[k] for k in keys}
+                      for (k, shape), t in timings.items()
+                      if k == "train_stream_batch_encode"}
+            entry["window"] = {k: entry.pop(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "call_ms")}
+            entry.update({k: stream[shape][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "call_ms",
+                "samples", "ms_per_sample", "bound_ms_per_sample")})
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]] + [t["max_abs_err"] for (k, _), t in
+                                          timings.items()
+                                          if k == "train_stream_batch_encode"])
+            entry["stream"] = {sh: v for sh, v in stream.items()
+                               if sh != shape}
         kernels.append(entry)
     for kname, line in zip(STEP_KERNELS, (295, 160, 189, 244)):
         shapes = {shape: t for (k, shape), t in timings.items()
@@ -1712,6 +1884,8 @@ def main() -> None:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": None, "shape": "step-parallel",
             "call_ms": main_t["call_ms"],
+            **{k: main_t[k] for k in ("graph_step_ms", "graph_step_ms_serial")
+               if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                for shape, t in shapes.items() if shape != "step-parallel"}})

@@ -115,20 +115,24 @@ def snn_su(rf: SnnRegFile, fired: torch.Tensor, p: STDPParams,
 
 def snn_step(rf: SnnRegFile, spike_words: torch.Tensor, lif: LIFParams,
              stdp: STDPParams | None,
-             teach: torch.Tensor | None = None, backend: str = "kernel"
-             ) -> tuple[SnnRegFile, torch.Tensor]:
+             teach: torch.Tensor | None = None, backend: str = "kernel",
+             dependent: bool = False) -> tuple[SnnRegFile, torch.Tensor]:
     """``snn.step``: one fused SNNU cycle for the whole population, in
     one kernel launch.
 
     spike_words int32[w] (or [B, w]) this cycle's packed input spikes;
     ``teach`` optional int32[n] (or [B, n]) teacher current added on the
     NU adder; ``stdp`` None leaves the SU idle (weights and LFSR pass
-    through).  Returns (rf', fired bool[n] or [B, n]).
+    through).  ``dependent`` launches the step as a programmatic
+    dependent of the stream's previous kernel, which must be the step
+    that wrote ``rf`` (``ops.fused_snn_step``).  Returns (rf', fired
+    bool[n] or [B, n]).
     """
     rf = snn_ls(rf, spike_words)
     su = _SU_IDLE if stdp is None else stdp
     w2, v2, fired, lf2 = ops.fused_snn_step(
         rf.weights, rf.spike, rf.v, rf.lfsr, teach, threshold=lif.threshold,
         leak=lif.leak, w_exp=su.w_exp, gain=su.gain, n_syn=su.n_syn,
-        ltp_prob=su.ltp_prob, train=stdp is not None, backend=backend)
+        ltp_prob=su.ltp_prob, train=stdp is not None, dependent=dependent,
+        backend=backend)
     return rf._replace(weights=w2, v=v2, lfsr=lf2), fired

@@ -10,10 +10,13 @@ Classification is by the class of the most-firing neuron over all
 blocks.
 
 ``train_mode="parallel"`` instead trains every block at once on the
-full set: one ``train_batch`` launch per presented sample covers all
-blocks (per-block regfiles, decorrelated by their LFSR seeds), with
-block 0 at ``ltp_prob`` and later blocks at ``ltp_prob_active``, as in
-active mode.
+full set: each presented sample covers all blocks (per-block regfiles,
+decorrelated by their LFSR seeds), with block 0 at ``ltp_prob`` and
+later blocks at ``ltp_prob_active``, as in active mode.
+
+With ``encode="kernel"`` on the window path an epoch of a block (active)
+or of all blocks (parallel) is one stream-kernel launch; otherwise one
+launch per presented sample.
 
 Ingestion follows ``encode``: ``"kernel"`` quantizes the images once to
 uint8 on the host and every presentation draws its spike window inside
@@ -104,6 +107,7 @@ class SNNModel:
     weights: torch.Tensor          # int32[n_neurons, w] bit patterns
     neuron_class: torch.Tensor     # int32[n_neurons], on the same device
     cfg: SNNTrainConfig = field(repr=False, default=None)
+    presentations: int = 0         # (sample, block) pairs trained on
 
 
 def _teacher(labels: torch.Tensor, cfg: SNNTrainConfig) -> torch.Tensor:
@@ -150,9 +154,8 @@ def _train_blocks_parallel(cfg: SNNTrainConfig, lfsr_seeds,
                            intensities: torch.Tensor | None = None,
                            sample_idx: torch.Tensor | None = None
                            ) -> torch.Tensor:
-    """Train all blocks concurrently on the full set, one
-    ``train_batch`` launch per presented sample over B = n_blocks
-    streams.  Blocks differ by their LFSR seeds (``lfsr_seeds``, one per
+    """Train all blocks concurrently on the full set, B = n_blocks
+    streams in every launch.  Blocks differ by their LFSR seeds (``lfsr_seeds``, one per
     block) and their LTP schedule (block 0 ``ltp_prob``, the rest
     ``ltp_prob_active``).  The sample stream is as in
     :func:`_train_block`, shared by every block.  Returns weights
@@ -265,15 +268,18 @@ def train(cfg: SNNTrainConfig, images, labels, *,
             cfg, block_seeds[:cfg.n_blocks], labels_t,
             spike_trains=spike_trains, intensities=intensities,
             sample_idx=sample_idx)
-        return SNNModel(weights, classes.repeat(cfg.n_blocks), cfg)
+        return SNNModel(weights, classes.repeat(cfg.n_blocks), cfg,
+                        n * cfg.n_blocks * cfg.epochs)
 
     blocks: list[torch.Tensor] = []
+    presentations = 0
     cur = (spike_trains, intensities, sample_idx, labels_t)
     for b in range(cfg.n_blocks):
         cur_trains, cur_inten, cur_idx, cur_labels = cur
         blocks.append(_train_block(
             cfg, block_seeds[b], cur_labels, b, spike_trains=cur_trains,
             intensities=cur_inten, sample_idx=cur_idx))
+        presentations += len(cur_labels) * cfg.epochs
         if b + 1 == cfg.n_blocks:
             break
         # active learning: the next block trains on this ensemble's errors
@@ -290,4 +296,5 @@ def train(cfg: SNNTrainConfig, images, labels, *,
             cur = (None, intensities[err], sample_idx[err], labels_t[err])
         else:
             cur = (spike_trains[err], None, None, labels_t[err])
-    return SNNModel(torch.cat(blocks), classes.repeat(len(blocks)), cfg)
+    return SNNModel(torch.cat(blocks), classes.repeat(len(blocks)), cfg,
+                    presentations)

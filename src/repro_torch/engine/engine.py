@@ -18,13 +18,19 @@ Python loop of ``rvsnn.snn_step`` (the JAX package's ``lax.scan``, under
 ``vmap`` for the batched verbs): one fused RV-SNN step launch per cycle
 for every stream of the call, T launches per window.  ``infer`` runs its
 B samples against the one bank (stream stride 0, never copied B times).
-The two paths are bit-exact with each other.
+The two paths are bit-exact with each other.  On a card the step path
+records a window's T launches as one CUDA graph the second time it sees
+the window's key (shapes, parameters, device), and replays it from then
+on: still one ``fused_snn_step`` per cycle, each a programmatic
+dependent of the step before it, without the host's per-launch cost.
 
 The module-level :func:`train_stream` / :func:`train_stream_batch`
 compose the verbs over a stream of samples (membrane reset between
-samples), one launch per presented sample, with the register file kept
-on the device across the loop; :func:`refresh_weights` runs one such
-pass over a serving-shaped bank.
+samples), with the register file kept on the device across the loop.
+With intensities and an in-kernel-encode learning plan, a whole stream
+is one launch of the stream kernel (``ops.train_stream_batch_encode``);
+otherwise one launch per presented sample.  :func:`refresh_weights`
+runs one such pass over a serving-shaped bank.
 
 The engine places its inputs on its device.  On a CUDA device with
 ``kernel_backend="kernel"`` the kernels are built when the engine is
@@ -33,6 +39,7 @@ constructed, so a build failure raises there and not inside a launch.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -177,15 +184,17 @@ class SNNEngine:
         Returns (rf', fired bool[T, ..., n]); T = 0 launches nothing and
         returns ``rf`` as it is."""
         lif = self.plan.lif()
-        rasters = []
-        for words in windows:
-            rf, fired = snn_step(rf, words, lif, stdp, teach,
-                                 backend=self.plan.kernel_backend)
-            rasters.append(fired)
-        if not rasters:
-            return rf, torch.zeros((0,) + rf.v.shape, dtype=torch.bool,
-                                   device=rf.v.device)
-        return rf, torch.stack(rasters)
+        if (len(windows) and rf.v.device.type == "cuda"
+                and self.plan.kernel_backend == "kernel"):
+            return _graph_steps(rf, windows, teach, stdp, lif)
+        return _run_steps(rf, windows, teach, stdp, lif,
+                          self.plan.kernel_backend)
+
+    def _plan_ltp(self) -> torch.Tensor:
+        """The plan's ``ltp_prob`` as int32[1] on the device."""
+        if self._ltp is None:
+            self._ltp = ops.seed_vector(self.plan.ltp_prob, 1, self.device)
+        return self._ltp
 
     def _stdp(self, ltp_prob) -> STDPParams | None:
         """The step path's SU operands, with ``ltp_prob`` (one value per
@@ -202,9 +211,7 @@ class SNNEngine:
         kw = dict(p.window_kwargs(), t_chunk=p.t_chunk,
                   backend=p.kernel_backend)
         if p.learn:
-            if self._ltp is None:
-                self._ltp = ops.seed_vector(p.ltp_prob, 1, self.device)
-            kw["ltp_prob"] = self._ltp
+            kw["ltp_prob"] = self._plan_ltp()
         if window is None and p.encode == "kernel":
             return ops.fused_snn_window_encode(
                 rf.weights, intensities, seed, rf.v, rf.lfsr, teach,
@@ -277,6 +284,21 @@ class SNNEngine:
         return ops.train_window_batch(rfs.weights, windows, rfs.v,
                                       rfs.lfsr, teach, **kw)
 
+    def _stream_kernel(self, rfs: SnnRegFile, intensities: torch.Tensor,
+                       seeds: torch.Tensor, teach: torch.Tensor,
+                       ltp_prob: torch.Tensor, n_steps: int):
+        """B streams of N samples in one stream-kernel launch: batched
+        ``rfs``, intensities uint8[N, B, n_in], seeds i32[N, B], teach
+        i32[N, B, n] (any strides on the first two axes).  Returns
+        (weights', v', counts i32[N, B, n], lfsr')."""
+        p = self.plan
+        kw = {k: v for k, v in p.window_kwargs().items()
+              if k not in ("train", "ltp_prob")}
+        return ops.train_stream_batch_encode(
+            rfs.weights, intensities, seeds, rfs.lfsr, teach,
+            n_steps=n_steps, ltp_prob=ltp_prob, backend=p.kernel_backend,
+            **kw)
+
     def _stream_ltp(self, ltp_prob, b: int) -> torch.Tensor:
         """Per-stream ``ltp_prob`` int32[b] on the device (default: the
         plan's, for every stream)."""
@@ -322,7 +344,136 @@ class SNNEngine:
         return rfs_out, fired.sum(dim=1, dtype=torch.int32), fired
 
 
+# --- the step path: eager cycles, or one CUDA graph per window key ----------
+
+def _run_steps(rf: SnnRegFile, windows: torch.Tensor, teach,
+               stdp: STDPParams | None, lif, backend: str,
+               dependent: bool = False) -> tuple[SnnRegFile, torch.Tensor]:
+    """One ``snn.step`` per cycle of ``windows``; with ``dependent`` every
+    step after the first launches as a programmatic dependent of the one
+    before it."""
+    rasters = []
+    for t, words in enumerate(windows):
+        rf, fired = snn_step(rf, words, lif, stdp, teach, backend=backend,
+                             dependent=dependent and t > 0)
+        rasters.append(fired)
+    if not rasters:
+        return rf, torch.zeros((0,) + rf.v.shape, dtype=torch.bool,
+                               device=rf.v.device)
+    return rf, torch.stack(rasters)
+
+
+class _StepGraph:
+    """A window's T ``snn.step`` launches recorded once as a CUDA graph:
+    T ``fused_snn_step`` kernel nodes, the first launched as usual, each
+    later one a programmatic dependent of the one before.  Its inputs are
+    static buffers, filled before each replay; its outputs are copied out
+    after it, so nothing returned aliases memory a later replay writes."""
+
+    def __init__(self, rf: SnnRegFile, windows: torch.Tensor, teach,
+                 stdp: STDPParams | None, lif):
+        def buffer(x):
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+        self.rf = SnnRegFile(*(buffer(x) for x in rf))
+        self.windows = buffer(windows)
+        self.teach = None if teach is None else buffer(teach)
+        self.stdp = (None if stdp is None else
+                     stdp._replace(ltp_prob=buffer(stdp.ltp_prob)))
+        self.cycles = len(windows)
+        self.graph = torch.cuda.CUDAGraph()
+        dev = windows.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                self.out = _run_steps(self.rf, self.windows, self.teach,
+                                      self.stdp, lif, "kernel",
+                                      dependent=True)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def replay(self, rf: SnnRegFile, windows: torch.Tensor, teach,
+               stdp: STDPParams | None) -> tuple[SnnRegFile, torch.Tensor]:
+        s = self.rf
+        s.weights.copy_(rf.weights)
+        s.v.copy_(rf.v)
+        self.windows.copy_(windows)
+        if self.teach is not None:
+            self.teach.copy_(teach)
+        if self.stdp is not None:
+            s.lfsr.copy_(rf.lfsr)
+            self.stdp.ltp_prob.copy_(stdp.ltp_prob)
+        self.graph.replay()
+        ops.fused_snn_step.launches += self.cycles
+        _graph_stats["replays"] += 1
+        out, fired = self.out
+
+        def own(got, static, given):
+            return given if got is static else got.clone()
+
+        return (rf._replace(spike=windows[-1], v=out.v.clone(),
+                            weights=own(out.weights, s.weights, rf.weights),
+                            lfsr=own(out.lfsr, s.lfsr, rf.lfsr)),
+                fired.clone())
+
+
+# One cache for the process, not per engine: the trainer builds an engine
+# per block and per classification, and their windows share keys.
+_GRAPHS_KEPT = 8           # recorded windows kept (least recently used go)
+_KEYS_KEPT = 64            # window keys remembered as seen once
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_seen: collections.OrderedDict = collections.OrderedDict()
+_graph_stats = {"recorded": 0, "replays": 0}
+
+
+def _keep(cache: collections.OrderedDict, key, value, size: int) -> None:
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > size:
+        cache.popitem(last=False)
+
+
+def _graph_steps(rf: SnnRegFile, windows: torch.Tensor, teach,
+                 stdp: STDPParams | None, lif
+                 ) -> tuple[SnnRegFile, torch.Tensor]:
+    """The step path on a card.  A window key (shapes, LIF and STDP
+    constants, teacher current or none, device) seen for the first time
+    runs its steps one launch each, which also warms up what a capture
+    needs; the second time, its launches are recorded as a
+    :class:`_StepGraph`; from then on the graph is replayed.  A capture
+    or replay that fails raises."""
+    key = (tuple(windows.shape), tuple(rf.weights.shape),
+           tuple(rf.v.shape), None if teach is None else tuple(teach.shape),
+           None if stdp is None else (stdp.w_exp, stdp.gain, stdp.n_syn,
+                                      tuple(stdp.ltp_prob.shape)),
+           tuple(lif), str(windows.device))
+    graph = _graphs.get(key)
+    if graph is None:
+        if key not in _seen:
+            _keep(_seen, key, None, _KEYS_KEPT)
+            return _run_steps(rf, windows, teach, stdp, lif, "kernel")
+        graph = _StepGraph(rf, windows, teach, stdp, lif)
+        _graph_stats["recorded"] += 1
+    _keep(_graphs, key, graph, _GRAPHS_KEPT)
+    return graph.replay(rf, windows, teach, stdp)
+
+
+def step_graph_stats() -> dict[str, int]:
+    """The step path's CUDA graphs: how many are kept now, and how many
+    were recorded and replayed since the process started."""
+    return dict(_graph_stats, kept=len(_graphs))
+
+
 # --- stream drivers (compose the verbs over the sample axis) ---------------
+
+def _stream_in_kernel(plan: SNNEnginePlan) -> bool:
+    """Whether a stream of intensities runs as one stream-kernel launch:
+    an in-kernel-encode plan that learns."""
+    return plan.encode == "kernel" and plan.learn
+
 
 def _counts(rasters: list[torch.Tensor], shape, device) -> torch.Tensor:
     """Per-sample spike counts from per-sample rasters [..., T, n],
@@ -343,8 +494,10 @@ def train_stream(engine: SNNEngine, rf: SnnRegFile, spike_trains=None,
     ``seeds`` i32[N] (default: the engine's seed chain); teach
     i32[N, n].  Neuron state resets between presentations; weights and
     LFSR persist.  One window launch per sample, with the regfile kept
-    on the engine's device; the spike register of the result is the
-    last presentation's.  Returns (rf', spike_counts i32[N, n]).
+    on the engine's device (one stream-kernel launch for the whole
+    stream with intensities on an in-kernel-encode plan); the spike
+    register of the result is the last presentation's.  Returns (rf',
+    spike_counts i32[N, n]).
     """
     _one_of(spike_trains, intensities, n_steps, "train_stream")
     dev = engine.device
@@ -360,6 +513,14 @@ def train_stream(engine: SNNEngine, rf: SnnRegFile, spike_trains=None,
     teach = (torch.zeros((n_samples, n), dtype=torch.int32, device=dev)
              if teach is None else
              torch.as_tensor(teach, dtype=torch.int32, device=dev))
+    if intensities is not None and n_samples and _stream_in_kernel(
+            engine.plan):
+        w2, v2, counts, lf2 = engine._stream_kernel(
+            SnnRegFile(*(x[None] for x in rf)), samples[:, None],
+            sd[:, None], teach[:, None], engine._plan_ltp(), n_steps)
+        spike = _last_cycle_spikes(sd[-1:], samples[-1], n_steps, words)
+        return rf._replace(weights=w2[0], v=v2[0], lfsr=lf2[0],
+                           spike=spike), counts[:, 0]
     v0 = torch.zeros_like(rf.v)        # read, never written, by launches
     rasters = []
     for i in range(n_samples):
@@ -391,8 +552,9 @@ def train_stream_batch(engine: SNNEngine, rfs: SnnRegFile,
     ``intensities`` [B, N, n_in] with ``n_steps`` and per-sample
     ``seeds`` i32[N] (shared by every stream) or i32[B, N]; teach
     i32[B, N, n].  ``ltp_prob`` optionally carries a per-stream i32[B]
-    schedule through every launch.  Returns (rfs', spike_counts
-    i32[B, N, n]).
+    schedule through every launch.  With intensities and an
+    in-kernel-encode plan, the whole stream is one launch.  Returns
+    (rfs', spike_counts i32[B, N, n]).
     """
     _one_of(spike_trains, intensities, n_steps, "train_stream_batch")
     p = engine.plan
@@ -407,7 +569,7 @@ def train_stream_batch(engine: SNNEngine, rfs: SnnRegFile,
     if intensities is not None:
         x = torch.as_tensor(intensities, dtype=torch.uint8, device=dev)
         n_samples = x.shape[1]
-        samples = x.transpose(0, 1).contiguous()
+        samples = x.transpose(0, 1)
         sd = torch.as_tensor(engine._seeds(None, n_samples, dev)
                              if seeds is None else seeds)
         sd = ops.seed_vector(sd.expand(b, n_samples).reshape(-1),
@@ -420,15 +582,23 @@ def train_stream_batch(engine: SNNEngine, rfs: SnnRegFile,
     teach_t = (torch.zeros((n_samples, b, n), dtype=torch.int32, device=dev)
                if teach is None else
                torch.as_tensor(teach, dtype=torch.int32, device=dev)
-               .transpose(0, 1).contiguous())
+               .transpose(0, 1))
+    if intensities is not None and n_samples and _stream_in_kernel(p):
+        # the stream kernel reads the sample-major views in place
+        w2, v2, counts, lf2 = engine._stream_kernel(
+            rfs, samples, sd, teach_t, lp, n_steps)
+        spike = _last_cycle_spikes(sd[-1], samples[-1], n_steps, words)
+        return (rfs._replace(weights=w2, v=v2, lfsr=lf2, spike=spike),
+                counts.transpose(0, 1))
+    teach_t = teach_t.contiguous()
     v0 = torch.zeros_like(rfs.v)
     rasters = []
     for i in range(n_samples):
         cur = rfs._replace(v=v0)
         if intensities is not None:
             out = engine._window_batch(cur, teach_t[i], lp,
-                                       intensities=samples[i], seeds=sd[i],
-                                       n_steps=n_steps)
+                                       intensities=samples[i].contiguous(),
+                                       seeds=sd[i], n_steps=n_steps)
         else:
             out = engine._window_batch(cur, teach_t[i], lp,
                                        windows=samples[i])
@@ -453,8 +623,9 @@ def refresh_weights(engine: SNNEngine, weights, *, labels, n_classes: int,
     ``weights`` is a serving-shaped u32[n, w] bank whose n = blocks x
     ``n_classes`` rows follow the trainer's block layout (neuron i's
     class is ``i % n_classes``).  The bank is reshaped into per-block
-    regfiles, every labeled sample is one :meth:`SNNEngine.train_batch`
-    launch across all blocks, and the result is reshaped back.  Samples
+    regfiles, the labeled samples go through :func:`train_stream_batch`
+    across all blocks (one stream-kernel launch for intensities on an
+    in-kernel-encode plan), and the result is reshaped back.  Samples
     are uint8 ``intensities`` [N, n_in] + counter ``seeds`` i32[N] with
     ``n_steps``, OR pre-packed ``spike_trains`` u32[N, T, w].
     ``teach_pos``/``teach_neg`` build the supervision currents from

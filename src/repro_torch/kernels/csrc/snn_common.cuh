@@ -1,6 +1,6 @@
 // Device code shared by the SNN kernels (snn_infer.cu, snn_train.cu,
 // snn_step.cu): the counter-hash spike draw, the streamlined LIF update,
-// the binary stochastic STDP arithmetic and its row update, a warp sum,
+// the binary stochastic STDP arithmetic and its row update, warp sums,
 // and the launch helpers that fit a block's shared memory.
 //
 // All packed words are u32 bit patterns (the port holds them as int32
@@ -90,32 +90,64 @@ __device__ __forceinline__ int warp_sum(int x) {
   return x;
 }
 
-// One step of the 16-bit Fibonacci LFSR (taps 16, 14, 13, 11), as
-// repro_torch.core.lfsr.step.
-__device__ __forceinline__ uint32_t lfsr_step(uint32_t s) {
-  const uint32_t fb = (s ^ (s >> 2) ^ (s >> 3) ^ (s >> 5)) & 1u;
-  return ((s >> 1) | (fb << 15)) & 0xFFFFu;
+// The same sum in one instruction (redux.sync, sm_80 and later) instead
+// of five dependent shuffles: the training and step kernels' rows sit on
+// a serial chain of cycles, where each shuffle's latency counts.
+__device__ __forceinline__ int warp_add(int x) {
+  return __reduce_add_sync(0xffffffffu, x);
 }
 
-// Homeostatic LTD probability of a row with pc ON synapses:
-// clip((pc - w_exp) * gain * 1024 // n_syn, 0, 1023), the product
-// wrapping in int32.  Truncating and floor division agree after the clip
-// for n_syn >= 1, which the wrappers require.
-__device__ __forceinline__ uint32_t ltd_prob(int pc, int w_exp, int gain,
-                                             int n_syn) {
-  const uint32_t d = static_cast<uint32_t>(pc) - static_cast<uint32_t>(w_exp);
-  const int32_t excess =
-      static_cast<int32_t>(d * static_cast<uint32_t>(gain) * 1024u) / n_syn;
-  return static_cast<uint32_t>(min(max(excess, 0), 1023));
+// Two steps of the 16-bit Fibonacci LFSR (taps 16, 14, 13, 11) of
+// repro_torch.core.lfsr.step, s1 = step(s) and s2 = step(s1), at once:
+// s2's bits 0-13 are s's bits 2-15, bit 14 is s1's bit 15 (the first
+// feedback, or'd with s's bit 16 as the masked shift leaves it) and bit
+// 15 the second feedback, which reads s's bits 1, 3, 4 and 6.  So s1's
+// low 10 bits, which LTP tests, are (s >> 1) & 0x3FF, and s2's, which LTD
+// tests, (s >> 2) & 0x3FF: neither waits for a feedback.
+__device__ __forceinline__ uint32_t lfsr_step2(uint32_t s) {
+  const uint32_t fb1 = ((s ^ (s >> 2) ^ (s >> 3) ^ (s >> 5)) | (s >> 16)) & 1u;
+  const uint32_t fb2 = ((s >> 1) ^ (s >> 3) ^ (s >> 4) ^ (s >> 6)) & 1u;
+  return ((s >> 2) & 0x3FFFu) | (fb1 << 14) | (fb2 << 15);
 }
+
+// The homeostatic LTD probability of a row with pc ON synapses is
+// clip(e / n_syn, 0, 1023), e = (pc - w_exp) * gain * 1024 wrapping in
+// int32 (truncating division).  ltd_excess gives e; ltd_prob the
+// probability, for a pass over many words of a row; ltd_hit whether one
+// 10-bit draw x is at or under it without the division, for a lane on a
+// chain of cycles: for e >= 0, x <= floor(e / n_syn) iff x * n_syn <= e
+// (and x <= 1023 always); for e < 0 the probability is 0.  Truncating and
+// floor division agree after the clip.  n_syn >= 1, which the wrappers
+// require.
+__device__ __forceinline__ int32_t ltd_excess(int pc, int w_exp, int gain) {
+  const uint32_t d = static_cast<uint32_t>(pc) - static_cast<uint32_t>(w_exp);
+  return static_cast<int32_t>(d * static_cast<uint32_t>(gain) * 1024u);
+}
+
+__device__ __forceinline__ uint32_t ltd_prob(int32_t excess, int n_syn) {
+  return static_cast<uint32_t>(min(max(excess / n_syn, 0), 1023));
+}
+
+__device__ __forceinline__ bool ltd_hit(uint32_t x, int32_t excess,
+                                        int n_syn) {
+  return excess < 0 ? x == 0
+                    : static_cast<long long>(x) * n_syn <= excess;
+}
+
+// Words of a row a lane loads together in the STDP pass before it stores
+// any of them.
+constexpr int kStdpBatch = 4;
 
 // Binary stochastic STDP on one fired row, by the warp that owns it
 // (lanes stride the W words).  Reads the row's weights w and LFSR lanes
 // st; writes w_out and st_out, which may be w and st themselves.  Per
 // word: s1, s2 = two LFSR steps; LTP w |= pre when (s1 & 0x3FF) <=
 // ltp_prob (u32 compare); the lane keeps s2.  Then, with pc the
-// popcount of the whole LTP'd row, LTD w &= pre when (s2 & 0x3FF) <=
-// ltd_prob(pc).
+// popcount of the whole LTP'd row, LTD w &= pre when (s2 & 0x3FF) is at
+// or under the row's LTD probability.  The outputs may alias the inputs,
+// so the compiler keeps every load after the stores before it; each lane
+// therefore loads kStdpBatch of its words before it stores any (a word
+// is only ever touched by its own lane).
 __device__ __forceinline__ void stdp_row(const uint32_t* w,
                                          const uint32_t* st,
                                          uint32_t* w_out, uint32_t* st_out,
@@ -123,18 +155,43 @@ __device__ __forceinline__ void stdp_row(const uint32_t* w,
                                          int lane, uint32_t ltp_prob,
                                          int w_exp, int gain, int n_syn) {
   int pc = 0;
-  for (int k = lane; k < W; k += 32) {
-    const uint32_t s1 = lfsr_step(st[k]);
-    const uint32_t s2 = lfsr_step(s1);
-    uint32_t word = w[k];
-    if ((s1 & 0x3FFu) <= ltp_prob) word |= pre[k];
-    w_out[k] = word;
-    st_out[k] = s2;
-    pc += __popc(word);
+  for (int k0 = lane; k0 < W; k0 += 32 * kStdpBatch) {
+    uint32_t s[kStdpBatch], word[kStdpBatch], p[kStdpBatch];
+#pragma unroll
+    for (int u = 0; u < kStdpBatch; ++u) {
+      const int k = k0 + 32 * u;
+      s[u] = k < W ? st[k] : 0;
+      word[u] = k < W ? w[k] : 0;
+      p[u] = k < W ? pre[k] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kStdpBatch; ++u) {
+      const int k = k0 + 32 * u;
+      if (((s[u] >> 1) & 0x3FFu) <= ltp_prob) word[u] |= p[u];
+      pc += __popc(word[u]);
+      if (k < W) {
+        w_out[k] = word[u];
+        st_out[k] = lfsr_step2(s[u]);
+      }
+    }
   }
-  const uint32_t prob = ltd_prob(warp_sum(pc), w_exp, gain, n_syn);
-  for (int k = lane; k < W; k += 32)
-    if ((st_out[k] & 0x3FFu) <= prob) w_out[k] &= pre[k];
+  const uint32_t prob = ltd_prob(ltd_excess(warp_add(pc), w_exp, gain),
+                                 n_syn);
+  for (int k0 = lane; k0 < W; k0 += 32 * kStdpBatch) {
+    uint32_t s[kStdpBatch], word[kStdpBatch], p[kStdpBatch];
+#pragma unroll
+    for (int u = 0; u < kStdpBatch; ++u) {
+      const int k = k0 + 32 * u;
+      s[u] = k < W ? st_out[k] : 0;
+      word[u] = k < W ? w_out[k] : 0;
+      p[u] = k < W ? pre[k] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kStdpBatch; ++u) {
+      const int k = k0 + 32 * u;
+      if (k < W && (s[u] & 0x3FFu) <= prob) w_out[k] = word[u] & p[u];
+    }
+  }
 }
 
 // The shared memory one block may opt into on the current device.

@@ -32,19 +32,30 @@
 // training step reads the bank and its LFSR lanes and writes both anew,
 // 16 bytes per word.
 //
-// What the design does about it: nothing beyond being one pass.  One
-// warp owns a row (lanes stride its words, coalesced): the SPU popcount
-// reduces with a shuffle sum, which every lane receives, so each lane
-// runs the LIF update itself and `fired` is uniform across the warp with
-// no broadcast; lane 0 writes v' and the fired byte.  A fired row then
-// runs snn::stdp_row (the window kernels' STDP pass, shared through
+// What the design does about it: one pass, and launches that overlap.
+// One warp owns a row (lanes stride its words, coalesced): the SPU
+// popcount reduces to every lane, so each lane runs the LIF update itself
+// and `fired` is uniform across the warp with no broadcast; lane 0
+// writes v' and the fired byte.  A fired row then runs the STDP pass
+// (snn::stdp_row, the window kernels' pass, shared through
 // snn_common.cuh), reading the input row and writing the output row; an
 // unfired row is copied through.  `train = false` compiles the SU out
 // and writes only v' and the raster, so the bank and LFSR are returned
 // as they came.  The LIF kernel is one thread per (stream, neuron).  No
 // kernel writes an input, and none needs shared memory or a barrier.
-// Cycles are launched one by one by the host (the step path); the window
-// kernels of snn_train.cu are the fused form of the same T cycles.
+//
+// The fused step is the step path's one launch per cycle, 72 a window,
+// so its launch latency is the cost.  The engine records a window's
+// launches as one CUDA graph and launches each step after the first as a
+// programmatic dependent (griddepcontrol) of the step before: the next
+// step's blocks start while this one ends, load what no earlier cycle
+// wrote (this cycle's spikes, teacher current and ltp_prob, and with the
+// SU idle the shared bank), and only then wait for the previous grid to
+// finish before they read v, the weights and the LFSR.  Rows of up to
+// 128 words (the paper's 25) hold their words in registers: every load
+// of the row issues before the dependent chain, and the STDP pass runs
+// on registers.  The window kernels of snn_train.cu are the fused form
+// of the same T cycles.
 //
 // Plain C interface (bound with ctypes): each launcher launches on the
 // given stream, does not synchronize, and returns cudaGetLastError().
@@ -123,6 +134,21 @@ __device__ __forceinline__ int row_count(const Step& o, const Row& row,
   return snn::warp_sum(acc);
 }
 
+// Programmatic dependent launch (sm_90): wait until the grid this one
+// depends on has finished and its writes are visible (a no-op when the
+// launch has no such dependency), and let the next grid start early.
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Words of a row each lane holds in registers on the short-row path of
+// the fused step: rows of up to 32 * kHeld words.
+constexpr int kHeld = 4;
+
 __global__ void __launch_bounds__(kThreads) spike_process_kernel(Step o) {
   Row row;
   if (!warp_row(o, &row)) return;   // whole warps leave together
@@ -147,21 +173,90 @@ __global__ void __launch_bounds__(kThreads) stdp_kernel(Step o) {
   su_row(o, row, o.fired_in[row.nrn] != 0, threadIdx.x % 32);
 }
 
-template <bool kLearn>
+// kShort: the row's words are held in registers (W <= 32 * kHeld).
+template <bool kLearn, bool kShort>
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(Step o) {
   Row row;
-  if (!warp_row(o, &row)) return;
+  const bool live = warp_row(o, &row);
   const int lane = threadIdx.x % 32;
-  const int32_t teach = o.teach ? o.teach[row.nrn] : 0;
-  const int32_t input = snn::add32(row_count(o, row, lane), teach);
+  const int W = o.W;
+  const uint32_t* pre = o.pre + static_cast<size_t>(blockIdx.y) * W;
+  const uint32_t* w = o.weights + (live ? row.bank : 0) * W;
+  // What no earlier cycle wrote: this cycle's spikes, teacher current
+  // and ltp_prob and, with the SU idle, the read-only bank.
+  uint32_t pre_r[kHeld], w_r[kHeld], st_r[kHeld];
+  int32_t teach = 0;
+  uint32_t ltp_prob = 0;
+  if (live) {
+    if (kShort) {
+#pragma unroll
+      for (int j = 0; j < kHeld; ++j) {
+        const int k = lane + 32 * j;
+        pre_r[j] = k < W ? pre[k] : 0;
+        if (!kLearn) w_r[j] = k < W ? w[k] : 0;
+      }
+    }
+    if (o.teach) teach = o.teach[row.nrn];
+    if (kLearn) ltp_prob = static_cast<uint32_t>(o.ltp_prob[blockIdx.y]);
+  }
+  wait_for_previous_grid();         // the previous step's v, bank, LFSR
+  allow_next_grid();                // its own wait keeps it off our outputs
+  if (!live) return;                // whole warps leave together
+  const int32_t v = o.v[row.nrn];
+  int acc = 0;
+  if (kShort) {
+    const uint32_t* st = kLearn ? o.lfsr + row.bank * W : nullptr;
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j) {
+      const int k = lane + 32 * j;
+      if (kLearn) {
+        w_r[j] = k < W ? w[k] : 0;
+        st_r[j] = k < W ? st[k] : 0;
+      }
+      acc += __popc(pre_r[j] & w_r[j]);
+    }
+  } else {
+    for (int k = lane; k < W; k += 32) acc += __popc(pre[k] & w[k]);
+  }
   bool fired;                       // the same on every lane of the warp
-  const int32_t v_next =
-      snn::lif_update(o.v[row.nrn], input, o.threshold, o.leak, &fired);
+  const int32_t v_next = snn::lif_update(
+      v, snn::add32(snn::warp_add(acc), teach), o.threshold, o.leak, &fired);
   if (lane == 0) {
     o.v_out[row.nrn] = v_next;
     o.fired[row.nrn] = fired;
   }
-  if (kLearn) su_row(o, row, fired, lane);
+  if (!kLearn) return;
+  if (!kShort) {
+    su_row(o, row, fired, lane);
+    return;
+  }
+  // snn::stdp_row on the held words; padding words (k >= W) are 0 and
+  // add nothing to the row popcount.
+  if (fired) {
+    int pc = 0;
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j) {
+      if (((st_r[j] >> 1) & 0x3FFu) <= ltp_prob) w_r[j] |= pre_r[j];
+      st_r[j] = snn::lfsr_step2(st_r[j]);
+      pc += __popc(w_r[j]);
+    }
+    const int32_t excess = snn::ltd_excess(snn::warp_add(pc), o.w_exp,
+                                           o.gain);
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j)
+      if (snn::ltd_hit(st_r[j] & 0x3FFu, excess, o.n_syn))
+        w_r[j] &= pre_r[j];
+  }
+  uint32_t* w_out = o.w_out + row.nrn * W;
+  uint32_t* st_out = o.lfsr_out + row.nrn * W;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int k = lane + 32 * j;
+    if (k < W) {
+      w_out[k] = w_r[j];
+      st_out[k] = st_r[j];
+    }
+  }
 }
 
 // One warp per row: grid (row groups, streams).
@@ -169,6 +264,27 @@ template <typename Kernel>
 int launch_rows(Kernel kernel, const Step& o, int B, void* stream) {
   const dim3 grid((o.n + kWarps - 1) / kWarps, B);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused step, one warp per row, as a programmatic dependent of the
+// stream's previous kernel when `dependent` is set.
+template <bool kLearn>
+int launch_step(const Step& o, int B, bool dependent, void* stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((o.n + kWarps - 1) / kWarps, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  const cudaError_t err =
+      o.W <= 32 * kHeld
+          ? cudaLaunchKernelEx(&cfg, fused_step_kernel<kLearn, true>, o)
+          : cudaLaunchKernelEx(&cfg, fused_step_kernel<kLearn, false>, o);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -239,12 +355,16 @@ int snn_stdp_update(const void* weights, const void* pre, const void* fired,
 // snn.step: reads weights (and, if train, lfsr) [B, n, W] ([n, W] if
 // shared), pre [B, W], v and teach (null: none) [B, n] and, if train,
 // ltp_prob [B]; writes v_out [B, n], fired [B, n] and, if train, w_out
-// and lfsr_out [B, n, W].  n_syn >= 1.
+// and lfsr_out [B, n, W].  n_syn >= 1.  `dependent`: launch as a
+// programmatic dependent of the stream's previous kernel, which must be
+// the step that wrote v (and the bank and LFSR), and must not have
+// written pre, teach, ltp_prob or a shared bank.
 int snn_fused_step(const void* weights, const void* pre, const void* v,
                    const void* lfsr, const void* teach, const void* ltp_prob,
                    void* w_out, void* v_out, void* fired, void* lfsr_out,
                    int B, int n, int W, int shared, int threshold, int leak,
-                   int w_exp, int gain, int n_syn, int train, void* stream) {
+                   int w_exp, int gain, int n_syn, int train, int dependent,
+                   void* stream) {
   Step o = bank(weights, pre, n, W, shared);
   o.v = static_cast<const int32_t*>(v);
   o.teach = static_cast<const int32_t*>(teach);
@@ -252,9 +372,9 @@ int snn_fused_step(const void* weights, const void* pre, const void* v,
   o.fired = static_cast<uint8_t*>(fired);
   o.threshold = threshold;
   o.leak = leak;
-  if (!train) return launch_rows(fused_step_kernel<false>, o, B, stream);
+  if (!train) return launch_step<false>(o, B, dependent != 0, stream);
   set_su(&o, lfsr, ltp_prob, w_out, lfsr_out, w_exp, gain, n_syn);
-  return launch_rows(fused_step_kernel<true>, o, B, stream);
+  return launch_step<true>(o, B, dependent != 0, stream);
 }
 
 // Human-readable text of a code returned above.

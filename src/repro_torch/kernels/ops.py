@@ -16,7 +16,10 @@ went through the kernel; :func:`reset_launch_counts` sets them to 0.
 ``fused_snn_window(train=True)`` is the one-stream case of
 :func:`train_window_batch` and launches (and counts) that kernel, as
 the JAX package's op does; ``train=False`` launches the read-only
-window kernel.  The encode forms pair the same way.
+window kernel.  The encode forms pair the same way, and
+:func:`train_stream_batch_encode` (a stream of samples per launch) is
+the same kernel as :func:`train_window_batch_encode` (its one-sample
+case), counted under that name.
 
 The step ops (:func:`spike_process`, :func:`lif_step`,
 :func:`stdp_update`, :func:`fused_snn_step`) take one stream, or a
@@ -29,11 +32,17 @@ is needed: shapes are the caller's own.
 slice's prefill attention, ``csrc/flash_attn.cu``) lives in
 ``kernels/flash_attention.py`` beside its plain version.
 
+:func:`fused_snn_step` can launch as a programmatic dependent of the
+previous step in the stream (``dependent=True``): the engine's CUDA
+graph of a window's cycles does, and its replays count their launches
+here.  A launch made while a graph is being captured runs nothing and
+counts nothing.
+
 The kernels never write their inputs: the training ops return new
 weight, v and LFSR tensors.  ``t_chunk`` is accepted for the JAX
 signature and has no effect: a block stages its state in shared memory
-once and streams the window one cycle at a time, so there is no spike
-slab to bound.
+once and sizes its spike window to its shared memory itself (whole
+windows where they fit, else one cycle's row at a time).
 """
 
 from __future__ import annotations
@@ -66,6 +75,8 @@ _SIGNATURES = {
     "snn_train": (("snn_train_window_batch", "pppppppppp iiiiiiiii p", "i"),
                   ("snn_train_window_batch_encode",
                    "ppppppppppp iiiiiiiiii p", "i"),
+                  ("snn_train_stream_encode",
+                   "pppppppppp llllll iiiiiiiiiii p", "i"),
                   ("snn_window_infer", "pppppp iiiiii p", "i"),
                   ("snn_window_infer_encode", "ppppppp iiiiiii p", "i"),
                   ("snn_train_tile_rows", "iiii", "i"),
@@ -73,7 +84,7 @@ _SIGNATURES = {
     "snn_step": (("snn_spike_process", "ppp iiii p", "i"),
                  ("snn_lif_step", "pppp iii p", "i"),
                  ("snn_stdp_update", "ppppppp iiiiiii p", "i"),
-                 ("snn_fused_step", "pppppppppp iiiiiiiiii p", "i")),
+                 ("snn_fused_step", "pppppppppp iiiiiiiiiii p", "i")),
     "flash_attn": (("flash_attn_forward", "pppp lllllllll iiiiiiiii f p",
                     "i"),
                    ("flash_attn_smem_bytes", "ii", "l")),
@@ -431,6 +442,106 @@ def train_window_batch_encode(weights: torch.Tensor,
     return w2, v2, fired, lf2
 
 
+def _seed_matrix(seeds, n_samples: int, b: int,
+                 device: torch.device) -> torch.Tensor:
+    """Counter seeds as int32[N, B] bit patterns on ``device``: one value
+    for every sample, one per sample (i32[N], shared by every stream) or
+    one per sample and stream (i32[N, B]), taken mod 2**32.  An
+    int32[N, B] tensor already there passes through."""
+    if isinstance(seeds, torch.Tensor):
+        if (seeds.dtype == torch.int32 and seeds.device == device
+                and tuple(seeds.shape) == (n_samples, b)):
+            return seeds.contiguous()
+        seeds = seeds.cpu()
+    values = lfsr.u32(seeds)
+    if values.numel() == 1:
+        values = values.reshape(1, 1)
+    elif values.ndim == 1 and values.numel() == n_samples:
+        values = values[:, None]
+    elif tuple(values.shape) != (n_samples, b):
+        raise ValueError(f"expected one seed, {n_samples} (one per "
+                         f"sample) or ({n_samples}, {b}), got shape "
+                         f"{tuple(values.shape)}")
+    return as_i32(values.expand(n_samples, b)).contiguous().to(device)
+
+
+def _check_per_sample(what: str, dev: torch.device, **tensors) -> None:
+    """The stream kernel's per-sample operands (``name=(tensor, dtype,
+    shape)``): on ``dev``, of its dtype and shape, the last axis
+    contiguous; the sample and stream axes may take any non-negative
+    stride (0: one operand shared by every stream)."""
+    for name, (t, dtype, want) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype}, got "
+                             f"{t.dtype}")
+        _check_shapes(what, **{name: (t, want)})
+        if (t.shape[-1] > 1 and t.stride(-1) != 1) or min(t.stride()) < 0:
+            raise ValueError(f"{what}: {name}'s last axis must be "
+                             f"contiguous")
+
+
+def train_stream_batch_encode(weights: torch.Tensor,
+                              intensities: torch.Tensor, seeds,
+                              lfsr_state: torch.Tensor, teach: torch.Tensor,
+                              *, n_steps: int, threshold: int, leak: int,
+                              w_exp: int, gain: int, n_syn: int,
+                              ltp_prob=1023, backend: str = "kernel"):
+    """B training streams of N samples each, in one launch: the kernel
+    form of the stream driver ``engine.train_stream_batch`` with
+    intensities.
+
+    weights, lfsr_state int32[B, n, w] (u32 bit patterns); intensities
+    uint8[N, B, n_in] (n_in <= 32 w) and teach int32[N, B, n], whose
+    sample and stream axes may take any stride (0: one operand shared by
+    every stream); seeds int | i32[N] (shared by every stream) |
+    i32[N, B], read as u32; ``ltp_prob`` an int or int32[B].  Sample i
+    of stream b is one :func:`train_window_batch_encode` window from
+    v = 0; weights and LFSR carry to sample i + 1.  Returns new
+    (weights', v' of the last sample, counts int32[N, B, n], lfsr');
+    with N = 0, the weights and LFSR as they came and v' = 0.
+    """
+    _check_backend(backend)
+    b, n, w = weights.shape
+    n_samples = intensities.shape[0]
+    dev = weights.device
+    sd = _seed_matrix(seeds, n_samples, b, dev)
+    if backend == "ref" or dev.type == "cpu":
+        return _ref.train_stream_batch_encode_ref(
+            weights, intensities, sd, lfsr_state, teach, n_steps, threshold,
+            leak, w_exp, gain, n_syn, ltp_prob)
+    what = "train_stream_batch_encode"
+    lp = seed_vector(ltp_prob, b, dev)
+    _check_operands(what, weights=(weights, torch.int32, 3),
+                    lfsr_state=(lfsr_state, torch.int32, 3),
+                    ltp_prob=(lp, torch.int32, 1))
+    n_in = intensities.shape[-1]
+    _check_shapes(what, lfsr_state=(lfsr_state, (b, n, w)))
+    _check_per_sample(what, dev,
+                      intensities=(intensities, torch.uint8,
+                                   (n_samples, b, n_in)),
+                      teach=(teach, torch.int32, (n_samples, b, n)))
+    _check_encode(what, n_in, w, n_steps)
+    _check_window(what, b, n_syn)
+    v2 = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    counts = torch.zeros((n_samples, b, n), dtype=torch.int32, device=dev)
+    if n_samples == 0 or b == 0 or n == 0:
+        return weights.clone(), v2, counts, lfsr_state.clone()
+    w2 = torch.empty_like(weights)
+    lf2 = torch.empty_like(lfsr_state)
+    _launch(what, "snn_train", "snn_train_stream_encode", dev,
+            weights.data_ptr(), intensities.data_ptr(), sd.data_ptr(),
+            lfsr_state.data_ptr(), teach.data_ptr(), lp.data_ptr(),
+            w2.data_ptr(), v2.data_ptr(), counts.data_ptr(), lf2.data_ptr(),
+            *intensities.stride()[:2], *sd.stride(), *teach.stride()[:2],
+            n_samples, b, n, w, n_in, n_steps, threshold, leak, w_exp, gain,
+            n_syn)
+    train_window_batch_encode.launches += 1
+    return w2, v2, counts, lf2
+
+
 def fused_snn_window(weights: torch.Tensor, spike_train: torch.Tensor,
                      v: torch.Tensor, lfsr_state: torch.Tensor,
                      teach: torch.Tensor, *, threshold: int, leak: int,
@@ -636,15 +747,20 @@ def fused_snn_step(weights: torch.Tensor, pre_spikes: torch.Tensor,
                    v: torch.Tensor, lfsr_state: torch.Tensor, teach, *,
                    threshold: int, leak: int, w_exp: int, gain: int,
                    n_syn: int, ltp_prob=1023, train: bool = True,
-                   backend: str = "kernel"):
+                   dependent: bool = False, backend: str = "kernel"):
     """SNNU (``snn.step``): one fused SPU -> teach -> NU -> SU cycle in
     one launch.
 
     Operands as :func:`spike_process` and :func:`stdp_update`; v (and
     ``teach``, or None for no teacher current) int32[n] or [B, n].
     ``train=False`` leaves the SU idle: the input weights and LFSR are
-    returned as they are (a shared bank stays [n, w]).  Returns
-    (weights', v', fired bool, lfsr').
+    returned as they are (a shared bank stays [n, w]).  ``dependent``
+    launches the kernel as a programmatic dependent of the stream's
+    previous kernel, which must be the step that wrote this step's v,
+    weights and LFSR: it starts while that one ends and reads the spikes,
+    teacher current and ``ltp_prob`` (and a shared bank) before waiting
+    for it, so nothing the previous kernel writes may be among those.
+    Returns (weights', v', fired bool, lfsr').
     """
     _check_backend(backend)
     if backend == "ref" or weights.device.type == "cpu":
@@ -683,8 +799,10 @@ def fused_snn_step(weights: torch.Tensor, pre_spikes: torch.Tensor,
                 pre_spikes.data_ptr(), v.data_ptr(), su[0],
                 None if teach is None else teach.data_ptr(), su[1], su[2],
                 v2.data_ptr(), fired.data_ptr(), su[3], b, n, w, shared,
-                threshold, leak, w_exp, gain, n_syn, int(train))
-        fused_snn_step.launches += 1
+                threshold, leak, w_exp, gain, n_syn, int(train),
+                int(dependent))
+        if not torch.cuda.is_current_stream_capturing():
+            fused_snn_step.launches += 1
     return w2, v2, fired, lf2
 
 

@@ -142,6 +142,28 @@ def train_window_batch_encode_ref(weights, intensities, seeds, v,
                                   ltp_prob)
 
 
+def train_stream_batch_encode_ref(weights, intensities, seeds, lfsr_state,
+                                  teach, n_steps: int, threshold: int,
+                                  leak: int, w_exp: int, gain: int,
+                                  n_syn: int, ltp_prob):
+    """B training streams of N samples: N :func:`train_window_batch_encode_ref`
+    windows, each from v = 0, weights and LFSR carried.  intensities
+    uint8[N, B, n_in], seeds int32[N, B], teach int32[N, B, n].  Returns
+    (weights', v' of the last sample, counts int32[N, B, n], lfsr')."""
+    v = torch.zeros(weights.shape[:2], dtype=torch.int32,
+                    device=weights.device)
+    counts = []
+    for x, sd, tch in zip(intensities, seeds, teach):
+        weights, v, fired, lfsr_state = train_window_batch_encode_ref(
+            weights, x, sd, torch.zeros_like(v), lfsr_state, tch, n_steps,
+            threshold, leak, w_exp, gain, n_syn, ltp_prob)
+        counts.append(fired.sum(dim=1, dtype=torch.int32))
+    counts = (torch.stack(counts) if counts else
+              torch.zeros((0,) + tuple(v.shape), dtype=torch.int32,
+                          device=v.device))
+    return weights, v, counts, lfsr_state
+
+
 def infer_window_batch_ref(weights: torch.Tensor,
                            spike_trains: torch.Tensor, threshold: int,
                            leak: int) -> torch.Tensor:

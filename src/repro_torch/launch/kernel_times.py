@@ -1,0 +1,167 @@
+"""Device time of the SNN training-window and step kernels, for comparing
+two checkouts on one card.
+
+    PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py
+
+times the kernels of whichever ``repro_torch`` is on the path (its own
+``build/`` holds its libraries), so the same script run against a parent
+checkout and this one, in turns within one call, compares the two.  It
+uses only the ops both sides have; the stream form is timed where it
+exists.  Shapes follow ``chip_smoke.py`` phase 3: the trainer's digits
+at 784-40 ("train-parallel": B = 4 streams of 10 neurons, T = 72; the
+read-only windows one stream; the fused step one cycle of the four
+streams; the stream form 8 samples shared by the four) and the
+synthetic "large" (65,536 inputs, 1,000 neurons, the same B).  Each
+time is the profiler's device time per launch of the kernel's own
+symbol over ``--reps`` calls; every output is first held equal to the
+plain version.  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+# fresh profiler sessions tried before giving up: the profiler now and
+# then records no device time for a while (as chip_smoke.py finds)
+_PROFILER_TRIES = 5
+
+
+def _device_ms(fn, symbol: str, reps: int) -> float:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(_PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if symbol in e.key and e.device_time_total > 0]
+        if rows:
+            return (sum(e.device_time_total for e in rows)
+                    / sum(e.count for e in rows) / 1e3)
+    raise RuntimeError(f"the profiler recorded no {symbol} in "
+                       f"{_PROFILER_TRIES} sessions")
+
+
+def _operands(shape: str, dev: torch.device) -> dict:
+    from repro_torch.core.bitpack import as_words
+    from repro_torch.core.encoder import (encode_windows_host,
+                                          quantize_intensities)
+    from repro_torch.core.stdp import init_weights
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+
+    rng = np.random.default_rng(0x5EED)
+    if shape == "large":
+        b, n_in, n = 4, 65536, 1000
+        weights = as_words(rng.integers(0, 2**32, (b, n, n_in // 32),
+                                        dtype=np.uint32))
+        inten = rng.integers(0, 256, (8, n_in), dtype=np.uint8)
+        inten[rng.random(inten.shape) < 0.6] = 0
+        inten = torch.from_numpy(inten)
+        labels = rng.integers(0, n, 8)
+        kw = dict(threshold=16384, leak=256, w_exp=n_in // 2, gain=4,
+                  n_syn=n_in)
+    else:
+        b, n_in, n = 4, 784, 10
+        weights = init_weights(n, 25, dense=True)[None].repeat(b, 1, 1)
+        x, labels = preprocessed_digits(8, seed=7)
+        inten = quantize_intensities(x)
+        kw = dict(threshold=192, leak=16, w_exp=128, gain=4, n_syn=n_in)
+    words = weights.shape[2]
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(labels, dtype=torch.int64) % n, n).to(torch.int32)
+    teach = onehot * 64 + (1 - onehot) * -1024           # [8, n]
+    lfsr = torch.from_numpy(rng.integers(1, 2**16, (b, n, words))
+                            .astype(np.int32))
+    seeds = torch.arange(8, dtype=torch.int32) * 7919 - 3
+    o = {k: t.to(dev).contiguous() for k, t in dict(
+        weights=weights, lfsr=lfsr, inten=inten, teach=teach, seeds=seeds,
+        ltp=torch.tensor([16, 1023, 1023, 1023], dtype=torch.int32)).items()}
+    o["v"] = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    # one cycle's membranes below the threshold, so that some rows fire
+    thr = kw["threshold"]
+    o["v_step"] = torch.from_numpy(
+        rng.integers(thr - 8000 if shape == "large" else 0, thr, (b, n))
+        .astype(np.int32)).to(dev)
+    o["wins"] = encode_windows_host(o["seeds"][:b], o["inten"][:b], 72, words)
+    return dict(o, b=b, n=n, kw=kw)
+
+
+def _same(got, want) -> None:
+    for a, c in zip(got, want):
+        if not torch.equal(a, c):
+            raise AssertionError("a kernel differs from its plain version")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times: needs a CUDA card")
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    ops.load_kernels()
+    out = {}
+    for shape in ("train-parallel", "large"):
+        o = _operands(shape, dev)
+        b, kw = o["b"], o["kw"]
+        reps = args.reps if shape != "large" else max(args.reps // 10, 3)
+        x, tch = o["inten"][:b], o["teach"][:b]
+        calls = {
+            "train_window_batch_encode": (
+                "train_window_enc_kernel",
+                lambda be: ops.train_window_batch_encode(
+                    o["weights"], x, o["seeds"][:b], o["v"], o["lfsr"], tch,
+                    n_steps=72, ltp_prob=o["ltp"], backend=be, **kw)),
+            "train_window_batch": (
+                "train_window_kernel",
+                lambda be: ops.train_window_batch(
+                    o["weights"], o["wins"], o["v"], o["lfsr"], tch,
+                    ltp_prob=o["ltp"], backend=be, **kw)),
+            "fused_snn_window": (
+                "window_infer_kernel",
+                lambda be: ops.fused_snn_window(
+                    o["weights"][0], o["wins"][0], o["v"][0], o["lfsr"][0],
+                    tch[0], ltp_prob=0, train=False, backend=be, **kw)[1:3]),
+            "fused_snn_window_encode": (
+                "window_infer_enc_kernel",
+                lambda be: ops.fused_snn_window_encode(
+                    o["weights"][0], x[0], o["seeds"][:1], o["v"][0],
+                    o["lfsr"][0], tch[0], n_steps=72, ltp_prob=0,
+                    train=False, backend=be, **kw)[1:3]),
+            "fused_snn_step": (
+                "fused_step_kernel",
+                lambda be: ops.fused_snn_step(
+                    o["weights"], o["wins"][:, 0].contiguous(), o["v_step"],
+                    o["lfsr"], tch, ltp_prob=o["ltp"], backend=be, **kw)),
+        }
+        if hasattr(ops, "train_stream_batch_encode"):
+            calls["train_stream_batch_encode"] = (
+                "train_window_enc_kernel",
+                lambda be: ops.train_stream_batch_encode(
+                    o["weights"], o["inten"][:, None].expand(8, b, -1),
+                    o["seeds"], o["lfsr"],
+                    o["teach"][:, None].expand(8, b, -1), n_steps=72,
+                    ltp_prob=o["ltp"], backend=be, **kw))
+        for name, (symbol, call) in calls.items():
+            _same(call("kernel"), call("ref"))
+            ms = _device_ms(lambda: call("kernel"), symbol, reps)
+            out[f"{name} @ {shape}"] = ms
+            if name == "train_stream_batch_encode":
+                out[f"{name} @ {shape} per sample"] = ms / 8
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "times_ms": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,9 +8,11 @@
 Procedural digits (the offline MNIST substitute) -> deskew + soft
 threshold -> supervised binary stochastic STDP (active learning, or all
 blocks in parallel) -> test-set classification through the engine's
-``infer`` verb.  ``--cycle-backend window`` presents each sample in one
-window-kernel launch, ``step`` cycle by cycle (one fused RV-SNN step
-launch per cycle; the spikes are then encoded on the host).  Prints the
+``infer`` verb.  ``--cycle-backend window`` presents each epoch in one
+stream-kernel launch (``--encode kernel``) or each sample in one
+window-kernel launch (``--encode host``), ``step`` cycle by cycle (one
+fused RV-SNN step launch per cycle, replayed from a CUDA graph per
+window on a card; the spikes are then encoded on the host).  Prints the
 accuracy, the training rate in presented samples per second, and the
 kernels' launch counts.  Runs on the card unless ``--device cpu`` asks
 for the plain versions.
@@ -60,8 +62,8 @@ def main() -> None:
     ap.add_argument("--cycle-backend", default="window",
                     choices=["window", "step"],
                     help="window = one window-kernel launch per "
-                         "presentation, step = one fused step launch per "
-                         "cycle")
+                         "presentation (one per epoch with --encode "
+                         "kernel), step = one fused step launch per cycle")
     ap.add_argument("--encode", default=None, choices=["host", "kernel"],
                     help="kernel = keep uint8 intensities and draw spikes "
                          "in the kernel; host = pre-encode the set "

@@ -227,6 +227,48 @@ def test_cuda_train_kernels_equal_plain_versions(cuda, b, n, n_in, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,n,n_in,t,n_samples,shared", [
+    (4, 10, 784, 72, 8, True),         # the parallel trainer's stream
+    (1, 10, 784, 72, 8, False),        # the active trainer's
+    (3, 70, 4096, 9, 3, False),
+    (2, 5, 70, 6, 4, True),            # n_in not whole words
+    (2, 20, 70, 5, 3, False),          # more rows than row warps
+    (2, 130, 65536, 4, 2, False)])     # per-cycle window rows
+def test_cuda_train_stream_equals_plain_version(cuda, b, n, n_in, t,
+                                                n_samples, shared):
+    weights, lfsr, _, _, _, _, _, ltp, kw = _train_operands(
+        n_in + n_samples, b, n, n_in, t, cuda)
+    rng = np.random.default_rng(n_samples)
+    inten = rng.integers(0, 256, (n_samples, 1 if shared else b, n_in),
+                         dtype=np.uint8)
+    inten[rng.random(inten.shape) < 0.6] = 0
+    inten = torch.from_numpy(inten).to(cuda).expand(n_samples, b, n_in)
+    labels = rng.integers(0, n, (n_samples, b))
+    teach = torch.from_numpy(np.where(
+        np.arange(n) == labels[..., None], 64, -300).astype(np.int32)).to(cuda)
+    seeds = torch.from_numpy(rng.integers(-2**31, 2**31, (n_samples, b))
+                             .astype(np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.train_stream_batch_encode(weights, inten, seeds, lfsr, teach,
+                                        n_steps=t, ltp_prob=ltp, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["train_window_batch_encode"] == 1
+    want = ops.train_stream_batch_encode(weights, inten, seeds, lfsr, teach,
+                                         n_steps=t, ltp_prob=ltp,
+                                         backend="ref", **kw)
+    _equal_all(got, want)
+    assert got[2].any()
+    # sample by sample through the one-sample op
+    w, lf = weights, lfsr
+    for i in range(n_samples):
+        w, v, fired, lf = ops.train_window_batch_encode(
+            w, inten[i].contiguous(), seeds[i], torch.zeros_like(got[1]), lf,
+            teach[i], n_steps=t, ltp_prob=ltp, **kw)
+        assert torch.equal(fired.sum(dim=1, dtype=torch.int32), got[2][i])
+    _equal_all((w, v, lf), (got[0], got[1], got[3]))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("train", [True, False])
 @pytest.mark.parametrize("n,n_in,t", [(10, 784, 72), (1000, 65536, 3)])
 def test_cuda_fused_windows_equal_plain_versions(cuda, train, n, n_in, t):
@@ -475,6 +517,60 @@ def test_cuda_step_path_equals_window_path(cuda, verb):
     _equal_all(step, window)
     _equal_all(step, cpu)
     assert step[-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verb", ["infer", "train", "train_batch"])
+def test_cuda_step_graph_replays_equal_window_path(cuda, verb):
+    """Three presentations of one window key on the step path: the first
+    launches its steps one by one, the second records and replays the
+    window's CUDA graph, the third replays it.  Each equals the window
+    path, counts T fused step launches, and what a replay returned stays
+    as it was after the next replay (no output aliases graph memory)."""
+    from repro_torch.core.rvsnn import snn_regfile_batch
+    from repro_torch.engine import SNNEngine, SNNEnginePlan
+    from repro_torch.engine import engine as engine_mod
+
+    rng = np.random.default_rng(11)
+    b, n, w, t = 4, 10, 25, 24
+    engines = {cb: SNNEngine(SNNEnginePlan(
+        threshold=90, leak=4, n_syn=784, w_exp=None if verb == "infer"
+        else 128, cycle_backend=cb), device=cuda) for cb in ("step",
+                                                            "window")}
+    lp = torch.tensor([16, 1023, 0, 64], dtype=torch.int32, device=cuda)
+    rfs = snn_regfile_batch(as_words(rng.integers(
+        0, 2**32, (b, n, w), dtype=np.uint32), cuda), [3, 5, 7, 9])
+    engine_mod._graphs.clear()
+    engine_mod._seen.clear()
+    kept = []
+    for k in range(3):
+        wins = as_words(_sparse_windows(rng, b, t, w), cuda)
+        teach = torch.from_numpy(rng.integers(-300, 100, (b, n))
+                                 .astype(np.int32)).to(cuda)
+        out = {}
+        for cb, eng in engines.items():
+            ops.reset_launch_counts()
+            if verb == "infer":
+                res = (eng.infer(rfs.weights[0], wins),)
+            elif verb == "train":
+                o = eng.train(type(rfs)(*(x[0] for x in rfs)), wins[0],
+                              teach[0])
+                res = tuple(o.regfile) + (o.fired,)
+            else:
+                r, counts, fired = eng.train_batch(rfs, wins, teach,
+                                                   ltp_prob=lp)
+                res = tuple(r) + (counts, fired)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            assert launches["fused_snn_step"] == (t if cb == "step" else 0)
+            out[cb] = res
+        _equal_all(out["step"], out["window"])
+        assert engine_mod.step_graph_stats()["kept"] == (0 if k == 0 else 1)
+        kept.append(([x.clone() for x in out["step"]], out["step"]))
+        if verb == "train_batch":        # the next window starts here
+            rfs = type(rfs)(*out["step"][:4])
+    for snapshot, returned in kept:
+        _equal_all(snapshot, returned)
 
 
 # --- the LM slice: flash attention (csrc/flash_attn.cu) ---------------------

@@ -14,7 +14,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    card (every output ``torch.equal``), then timed, with its bound.
    Serving kernels: the paper's shape (B = 32, 784 inputs, 40 neurons,
    T = 72, ragged lengths including 0), the canary's, and a large
-   synthetic one (B = 16, 65,536 inputs, 1,000 neurons).  Training
+   synthetic one (B = 16, 65,536 inputs, 1,000 neurons); the encode
+   kernel's regime at each is printed (window at the first two, GEMM at
+   large) and it is timed over all the kernels a call launches.  Training
    kernels: "train-parallel" (B = 4 streams of 10 neurons, 784 inputs,
    T = 72, ltp_prob [16, 1023, 1023, 1023]: the trainer's parallel
    launch at 784-40), "train-active" (B = 1: active mode's launch) and
@@ -66,11 +68,12 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    and replayed, traces a short step-path run under ``torch.profiler``
    (the card's busy share), and runs ``launch/quickstart.py`` on the
    card.
-8. The LM slice: the bf16 flash kernel's build checked (ptxas's line
-   for each head dim, no spills; ``HGMMA`` tensor-core instructions
-   counted in the SASS, ``cuobjdump -sass``), then the flash-attention
-   kernels (``flash_attn.cu``: ``flash_fwd_kernel`` for float32 on the
-   CUDA cores, ``flash_wgmma_kernel`` for bfloat16 on the tensor cores)
+8. The LM slice: both flash kernels' builds checked (ptxas's line for
+   each head dim, no spills; tensor-core instructions counted in the
+   SASS, ``cuobjdump -sass``: ``HMMA`` in the float32 kernel, ``HGMMA``
+   in the bfloat16 one), then the flash-attention kernels
+   (``flash_attn.cu``: ``flash_fwd_kernel`` for float32 in split TF32 on
+   ``mma.sync``, ``flash_wgmma_kernel`` for bfloat16 on ``wgmma``)
    against their plain version in float32 (atol = rtol = 1e-4) and
    bfloat16 (3e-2) at gemma3-1b's shapes (B 1, Hq 4, Hkv 1, D 256, T 2,048,
    causal, global and with the 512 window; T 37 and 1,000 with the
@@ -83,7 +86,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    ``scaled_dot_product_attention`` (the yardstick: the port never calls
    it), all three as device time from the profiler (the kernel by its
    own dtype's symbol, the other two every kernel and copy of a call),
-   with the achieved TFLOP/s and kernel/bound.  Then gemma3-1b at full
+   with the achieved TFLOP/s and kernel/bound (the float32 bound: three
+   TF32 products at the tensor cores' rate).  Then gemma3-1b at full
    width in bfloat16, random weights from a seed, served by
    ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy requests of 37
    to 2,048 prompt tokens, 32 new tokens each, with the launch counts set
@@ -128,6 +132,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/snn_infer.cu"
+# the encode serving op's kernels: the window regime's one, or the GEMM
+# regime's draw and sums
+ENCODE_SYMBOL = "infer_window_enc_"
 TRAIN_SOURCE = "src/repro_torch/kernels/csrc/snn_train.cu"
 STEP_SOURCE = "src/repro_torch/kernels/csrc/snn_step.cu"
 PALLAS = "src/repro/kernels/snn_kernels.py"
@@ -198,15 +205,16 @@ def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
 
 
 def kernel_ms(fn, symbol: str, reps: int) -> float:
-    """Device time of one launch of the CUDA kernel ``symbol``: its
-    profiler records over ``reps`` calls of ``fn``, over the number of
-    records the profiler kept."""
+    """Device time of one call of ``fn`` in the CUDA kernels whose name
+    holds ``symbol``, over ``reps`` calls: each kernel's profiler records
+    over the number of records the profiler kept of it, summed over the
+    kernels (one, or those one call launches in turn, as the encode
+    serving op's GEMM regime launches a draw and then the sums)."""
     def read(prof):
         rows = [e for e in prof.key_averages()
                 if symbol in e.key and e.device_time_total > 0]
         if rows:
-            return (sum(e.device_time_total for e in rows)
-                    / sum(e.count for e in rows) / 1e3)
+            return sum(e.device_time_total / e.count for e in rows) / 1e3
 
     return profiled_ms(fn, reps, symbol, read)
 
@@ -371,11 +379,16 @@ def phase_kernels(rates: Rates) -> dict:
             "infer_window_batch_encode": (
                 lambda be: ops.infer_window_batch_encode(
                     w, x, seeds, n_steps=t, t_total=tt, backend=be, **kw),
-                int(tt_np.clip(0, t).sum()), True, "infer_window_enc_kernel"),
+                int(tt_np.clip(0, t).sum()), True, ENCODE_SYMBOL),
             "infer_window_batch": (
                 lambda be: ops.infer_window_batch(w, wins, backend=be, **kw),
                 b * t, False, "infer_window_kernel"),
         }
+        plan = ops.encode_plan(b, n, words, t)
+        print(f"infer_window_batch_encode @ {name}: {plan.regime} regime"
+              + (f", a cluster of {plan.cluster} blocks a sample, "
+                 f"{plan.smem_bytes} shared bytes a block"
+                 if plan.regime == "window" else ""), flush=True)
         got_by_kernel = {}
         for kname, (call, active, encode, symbol) in calls.items():
             timing, got = hold_and_time(
@@ -1360,10 +1373,13 @@ def phase_quickstart() -> None:
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
 FLASH_PALLAS = "src/repro/kernels/flash_attention.py:114"
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores,
-# float32 outside them (the kernel's float32 inputs need full float32)
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores; for
+# float32, the tensor cores' TF32 rate over three: the least time for
+# f32-accurate products is three TF32 products (big.big, big.small,
+# small.big of each operand split into two TF32 halves), which beats the
+# CUDA cores' full-f32 67 TFLOP/s
 BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
+F32_FLOP_PER_S = 494.7e12 / 3
 # (name, B, Hq, Hkv, D, T, causal, window)
 FLASH_SHAPES = (
     ("gemma-global", 1, 4, 1, 256, 2048, True, None),
@@ -1373,10 +1389,12 @@ FLASH_SHAPES = (
     ("gqa-noncausal", 2, 8, 2, 128, 512, False, None),
     ("starcoder2-3b", 1, 24, 2, 128, 1024, True, None),
 )
-# (dtype, name, atol = rtol, the kernel that runs it): f32 on the CUDA
-# cores, bf16 on the tensor cores (wgmma, TMA)
+# (dtype, name, atol = rtol, the kernel that runs it): f32 in split TF32
+# (mma.sync), bf16 with wgmma and TMA, both on the tensor cores
 FLASH_DTYPES = ((torch.float32, "f32", 1e-4, "flash_fwd_kernel"),
                 (torch.bfloat16, "bf16", 3e-2, "flash_wgmma_kernel"))
+# each kernel's tensor-core instruction in the SASS
+FLASH_TENSOR_OP = {"f32": "HMMA", "bf16": "HGMMA"}
 FLASH_HEAD_DIMS = (32, 64, 128, 256)
 # bf16 also within this share of the output's largest magnitude: about
 # one bf16 rounding of the largest output (2**-8 of it), so a fault in
@@ -1446,53 +1464,58 @@ def fused_views(q, k, v):
 
 
 def check_flash_build() -> None:
-    """The bf16 kernel as built: ptxas's line for each head dim (no
-    spills allowed) and its tensor-core instructions (``HGMMA``) counted
-    in the library's SASS (none: fail)."""
+    """Both flash kernels as built, at every head dim: ptxas's register
+    and spill line (any spill fails), and their tensor-core instructions
+    counted in the library's SASS (``cuobjdump -sass``: ``HGMMA`` in the
+    bf16 ``wgmma`` kernel, ``HMMA`` in the f32 split-TF32 ``mma.sync``
+    kernel; none at some head dim fails)."""
     from repro_torch.kernels import build
 
     lib = build.library_path("flash_attn")
+    symbols = {sym for _, _, _, sym in FLASH_DTYPES}
     props, fn = {}, None
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-        elif fn and "flash_wgmma_kernel" in fn and (
+        elif fn and any(s in fn for s in symbols) and (
                 "spill" in line or "registers" in line):
             props.setdefault(fn, []).append(line.split(":", 1)[-1].strip()
                                             if "registers" in line
                                             else line.strip())
-    dims = {int(re.search(r"ILi(\d+)E", f).group(1)): "; ".join(v)
-            for f, v in props.items()}
-    for d in FLASH_HEAD_DIMS:
-        print(f"ptxas flash_wgmma_kernel<{d}>: {dims.get(d)}", flush=True)
-    if sorted(dims) != list(FLASH_HEAD_DIMS):
-        fail(f"ptxas reported flash_wgmma_kernel at head dims "
-             f"{sorted(dims)}, expected {FLASH_HEAD_DIMS}")
-    spills = [d for d, line in dims.items()
-              if re.search(r"[1-9]\d* bytes spill", line)]
-    if spills:
-        fail(f"flash_wgmma_kernel spills registers at head dims {spills}")
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    hgmma = collections.Counter()
+    ops = collections.Counter()
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-        elif fn and "HGMMA" in line:
-            hgmma[fn] += 1
-    per_dim = {d: sum(n for f, n in hgmma.items()
-                      if f"flash_wgmma_kernelILi{d}E" in f)
-               for d in FLASH_HEAD_DIMS}
-    print(f"sass: HGMMA instructions in flash_wgmma_kernel by head dim "
-          f"{per_dim}; in flash_fwd_kernel "
-          f"{sum(n for f, n in hgmma.items() if 'flash_fwd_kernel' in f)}",
-          flush=True)
-    if not all(per_dim.values()):
-        fail(f"flash_wgmma_kernel has no HGMMA instruction at some head "
-             f"dim: {per_dim}")
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    ops[fn, op] += 1
+    for _, dname, _, symbol in FLASH_DTYPES:
+        dims = {int(re.search(r"ILi(\d+)E", f).group(1)): "; ".join(v)
+                for f, v in props.items() if symbol in f}
+        for d in FLASH_HEAD_DIMS:
+            print(f"ptxas {symbol}<{d}>: {dims.get(d)}", flush=True)
+        if sorted(dims) != list(FLASH_HEAD_DIMS):
+            fail(f"ptxas reported {symbol} at head dims {sorted(dims)}, "
+                 f"expected {FLASH_HEAD_DIMS}")
+        spills = [d for d, line in dims.items()
+                  if re.search(r"[1-9]\d* bytes spill", line)]
+        if spills:
+            fail(f"{symbol} spills registers at head dims {spills}")
+        op = FLASH_TENSOR_OP[dname]
+        per_dim = {d: sum(c for (f, o), c in ops.items()
+                          if o == op and f"{symbol}ILi{d}E" in f)
+                   for d in FLASH_HEAD_DIMS}
+        print(f"sass: {op} instructions in {symbol} by head dim {per_dim}",
+              flush=True)
+        if not all(per_dim.values()):
+            fail(f"{symbol} has no {op} instruction at some head dim: "
+                 f"{per_dim}")
 
 
 def phase_flash_kernel() -> dict:
@@ -1837,13 +1860,18 @@ def main() -> None:
             "name": kname, "route": "cuda", "source": source,
             "replaces": f"{PALLAS}:{line}",
             "launches": launches[kname],
-            "max_abs_err": max(main_t["max_abs_err"], large["max_abs_err"]),
+            "max_abs_err": max(t["max_abs_err"] for (k, _), t in
+                               timings.items() if k == kname),
             "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": None, "shape": shape,
             "call_ms": main_t["call_ms"],
             "large": {k: large[k] for k in ("ms", "call_ms", "plain_ms",
                                             "bound_ms", "bound_by")}}
+        if (kname, "canary") in timings and shape != "canary":
+            entry["canary"] = {k: timings[(kname, "canary")][k]
+                               for k in ("ms", "call_ms", "plain_ms",
+                                         "bound_ms", "bound_by")}
         if (kname, "train-active") in timings and shape != "train-active":
             entry["train-active"] = {
                 k: timings[(kname, "train-active")][k]

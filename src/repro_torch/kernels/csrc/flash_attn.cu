@@ -1,5 +1,6 @@
 // Prefill attention (online softmax, causal / sliding-window / GQA) for
-// sm_90a: a tensor-core kernel for bf16 and a CUDA-core kernel for f32.
+// sm_90a: both dtypes on the tensor cores, bf16 with `wgmma`, f32 as
+// split TF32 with `mma.sync`.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention`, `_flash_kernel`): q [B, Hq, Tq, D], k and v
@@ -22,7 +23,8 @@
 // D 256, T up to 2,048; starcoder2-3b width: Hq 24, Hkv 2, D 128) the
 // work is 4 B Hq D flops per unmasked (q, k) pair against q, k, v and o
 // read or written once: hundreds of flops per byte, so the tensor cores'
-// bf16 rate (989 TFLOP/s dense on an H100 SXM) is the bound.  One block
+// rate is the bound: 989 TFLOP/s dense in bf16 on an H100 SXM, and in f32
+// three TF32 products at 495 (~165 TFLOP/s of f32-accurate work).  One block
 // runs on one SM, so a q tile can go no faster than 989 / 132 = 7.5
 // TFLOP/s: the last causal q tile of gemma3-1b at T 2,048 (64 rows x
 // 2,048 keys x D 256, 134 MFLOP) needs at least 18 us, whatever the rest
@@ -55,12 +57,32 @@
 // Overlapping the softmax with the previous tile's P V in the one
 // warpgroup was slower at every shape, and a deeper ring no faster.
 //
-// f32: `flash_fwd_kernel` multiplies on the CUDA cores in full f32 (the
-// tensor cores have no full-f32 mode): 256 threads, the q tile (scaled,
-// f32), one K and one V tile and the scores staged in shared memory (up
-// to 139 KB at D 256, 32-row KV tiles); thread (ty, tx) of a 16 x 16 grid
-// owns rows ty + 16 i for both products, so m, l and the rescale stay in
-// its registers and a row's maximum and sum are half-warp shuffles.
+// f32: `flash_fwd_kernel` runs both products on the tensor cores in split
+// TF32 (CUTLASS's OpMultiplyAddFastF32): each f32 operand x is split into
+// big = tf32(x) and small = tf32(x - big), both rounded as `cvt.rna`
+// rounds, and each product is big.big + big.small + small.big (three
+// `mma.sync.m16n8k8` TF32 instructions, f32 sums): x's part past small is
+// ~2^-22 x and small.small is dropped, so the scores and outputs keep
+// about f32's accuracy.  The f32 bound is therefore three TF32 products
+// at the tensor cores' 495 TFLOP/s, not the CUDA cores' 67.  `wgmma` is
+// not used here: its TF32 form reads shared-memory operands K-major only
+// (no transpose bit outside 16-bit types), so V would need a transposed
+// copy, and the split halves a second copy of every tile (past 227 KB at
+// D 256); with `mma.sync` the fragments come from registers in any
+// layout, so the split costs registers and ALU work, not shared memory.
+// 128 threads: each of four warps owns 16 rows of the 64-row q tile, so a
+// row's maximum and sum are shuffles within a quad and the scores never
+// leave registers.  Q (staged once) and a two-stage ring of K and V tiles
+// (32 rows; 64 at D 32) sit in shared memory, rows padded so that every
+// fragment read is a conflict-free 16-byte read (the sums over d, and the
+// output columns, run in a permuted order to make them so); the next
+// tile's copy (cp.async, 16 bytes a copy where the caller's bases and
+// strides are whole 16 bytes, else 4, never a refusal) overlaps this
+// tile's products, one barrier a tile.  P is the A operand of P V
+// straight from the S accumulators: within each 8-key slice the keys are
+// read in the order the accumulator holds them (see `f32_pv`), so P needs
+// no shuffle and no trip through shared memory.  Shared memory: 201 KB at
+// D 256 (one block an SM), 105 KB at D 128 (two).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -79,210 +101,374 @@ constexpr int kBadHeadDim = -3;
 constexpr int kNoEncoder = -4;
 constexpr int kBadTensorMap = -5;
 
-// --- f32: CUDA cores --------------------------------------------------------
+// --- shared by both paths: the online softmax in registers -----------------
 
-constexpr int kThreads = 256;      // a 16 x 16 grid of threads
-constexpr int kPad = 4;            // floats of padding per staged row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit, without exp2f's accurate path: its
+// relative error (~2^-22) is far inside the bf16 rounding of p and the
+// f32 path's 1e-4.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Both paths hold the scores of one KV tile in the layout of the m16n8 /
+// m64nN accumulators: element x of a thread (warp w, lane) is row
+// r0 + 8 ((x / 2) % 2), r0 = 16 w + lane / 4, column 8 (x / 4) + c0 + x % 2,
+// c0 = 2 (lane % 4).  So a row's maximum and sum are shuffles within a
+// quad.
+//
+// The online softmax of one tile of N scores a thread (KV rows from k0),
+// in place: scales them into the log2 domain, masks them if kMask (a tile
+// that crosses a band edge or the end of Tk), and turns them into
+// p = exp2(s - m) against the rows' new maxima m; alpha gets each row's
+// rescale factor and l (this thread's columns only) the rows' sums of p.
+template <bool kMask, int N, typename P>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[N], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    const P& p, int k0, int q_first, int r0, int c0) {
+  static_assert(N <= 32, "one mask bit per score");
+  uint32_t keep = 0;                             // bit x: sc[x] is unmasked
+  if constexpr (kMask) {
+#pragma unroll
+    for (int x = 0; x < N; ++x) {
+      const int kpos = k0 + 8 * (x / 4) + c0 + x % 2;
+      const int qpos = q_first + r0 + 8 * ((x / 2) % 2);
+      bool ok = kpos < p.tk;
+      if (p.causal) ok = ok && kpos <= qpos;
+      if (p.window > 0) ok = ok && kpos > qpos - p.window;
+      keep |= static_cast<uint32_t>(ok) << x;
+    }
+  }
+  float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    sc[x] *= p.scale_log2;
+    if constexpr (kMask) sc[x] = (keep >> x) & 1u ? sc[x] : kNegInf;
+    mt[(x / 2) % 2] = fmaxf(mt[(x / 2) % 2], sc[x]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m[r], mt[r]);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    const int r = (x / 2) % 2;
+    sc[x] = fast_exp2(sc[x] - m[r]);
+    if constexpr (kMask) sc[x] = (keep >> x) & 1u ? sc[x] : 0.0f;
+    l[r] += sc[x];
+  }
+}
+
+// Does the KV tile [k0, k0 + rows) cross the end of Tk or an edge of the
+// q tile's causal or window band (and so need the masked softmax)?
+__device__ __forceinline__ bool tile_crosses_band(int k0, int rows, int tk,
+                                                  int causal, int window,
+                                                  int q_first, int q_last) {
+  return k0 + rows > tk || (causal && k0 + rows - 1 > q_first)
+         || (window > 0 && k0 <= q_last - window);
+}
+
+// --- f32: tensor cores, split TF32 (mma.sync) -------------------------------
+
+
+constexpr int kF32Threads = 128;   // four warps, 16 q rows each
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
+  void* o;                         // [B, Hq, Tq, D], contiguous
   long long q_sb, q_sh, q_st;      // element strides of batch, head, row
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
   int hq, hkv, tq, tk;
   int causal;
   int window;                      // <= 0: no window
-  float scale;
+  float scale_log2;                // scale * log2(e)
+  int vec;                         // f32: bases and strides on 16 bytes
 };
 
+// Staged rows are padded so that every 16-byte fragment read of a quarter
+// warp falls on eight different bank quads: Q and K rows (read across d)
+// D + 16 floats apart, V rows (read across two keys) D + 4.
 template <int D>
 struct Tile {
-  static constexpr int kBlockK = D >= 256 ? 32 : 64;   // KV rows per tile
-  static constexpr int kVec = D >= 64 ? 4 : 2;         // output columns per group
-  static constexpr int kGroups = D / (16 * kVec);      // groups per thread
-  static constexpr int kRows = kBlockQ / 16;           // rows per thread
-  static constexpr int kCols = kBlockK / 16;           // score columns per thread
-  static constexpr int kQStride = D + kPad;
-  static constexpr int kKStride = D + kPad;
-  static constexpr int kSStride = kBlockK + kPad;
-  static constexpr int kSmemFloats = kBlockQ * kQStride + kBlockK * kKStride
-                                     + kBlockK * D + kBlockQ * kSStride;
-  static constexpr int kSmemBytes = kSmemFloats * 4;
+  static constexpr int kBlockK = D >= 64 ? 32 : 64;   // KV rows per tile
+  static constexpr int kQKStride = D + 16;
+  static constexpr int kVStride = D + 4;
+  static constexpr int kNb = kBlockK / 8;             // n8 blocks of S
+  static constexpr int kOb = D / 8;                   // n8 blocks of O
+  static constexpr int kQFloats = kBlockQ * kQKStride;
+  static constexpr int kKFloats = kBlockK * kQKStride;
+  static constexpr int kStageFloats = kKFloats + kBlockK * kVStride;
+  // Q, then two stages of (K, V)
+  static constexpr int kSmemBytes = 4 * (kQFloats + 2 * kStageFloats);
 };
 
-// Stage rows [r0, r0 + rows) of one head (row stride `st` elements) into
-// shared memory times `mul`, rows past `n` as zeros.
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as `cvt.rna.tf32.f32` rounds a finite x, in two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small + O(2^-22 x): both halves TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8] on the tensor cores, TF32 in, f32 sums.
+// Fragments (g = lane / 4, t = lane % 4): a0..a3 are A's (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); b0, b1 are B's (t, g),
+// (t + 4, g); c0..c3 are C's (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A B in split TF32: big.small and small.big into `lo`, big.big into
+// `hi` (the same accumulator, or two for more independent chains).
+__device__ __forceinline__ void mma_split(float* hi, float* lo,
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          const float (&b)[2]) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b[0], bb0, bs0);
+  split_tf32(b[1], bb1, bs1);
+  mma_tf32(lo, ab, bs0, bs1);
+  mma_tf32(lo, as, bb0, bb1);
+  mma_tf32(hi, ab, bb0, bb1);
+}
+
+// Copies rows [r0, r0 + rows) of one head (row stride `st` elements) to
+// shared memory at `dst` (`stride` floats a row) with cp.async, rows at
+// or past `n` as zeros (a copy of 0 source bytes): 16 bytes a copy where
+// the caller's bases and strides allow it (`vec`), else 4.  Completes at
+// the caller's cp.async.wait_group.
 template <int D>
-__device__ __forceinline__ void stage(float* dst, int dst_stride,
-                                      const float* src, long long st, int r0,
-                                      int rows, int n, float mul) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int row = r0 + r;
-    dst[r * dst_stride + c] = row < n ? src[row * st + c] * mul : 0.0f;
+__device__ __forceinline__ void stage_async(uint32_t dst, int stride,
+                                            const float* src, long long st,
+                                            int r0, int rows, int n,
+                                            bool vec) {
+  if (vec) {
+    constexpr int kQuads = D / 4;
+    for (int idx = threadIdx.x; idx < rows * kQuads; idx += kF32Threads) {
+      const int r = idx / kQuads;
+      const int c = 4 * (idx - r * kQuads);
+      const bool ok = r0 + r < n;
+      const float* g = ok ? src + (r0 + r) * st + c : src;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                   :: "r"(dst + 4 * (r * stride + c)), "l"(g),
+                      "r"(ok ? 16 : 0) : "memory");
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * D; idx += kF32Threads) {
+      const int r = idx / D;
+      const int c = idx - r * D;
+      const bool ok = r0 + r < n;
+      const float* g = ok ? src + (r0 + r) * st + c : src;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                   :: "r"(dst + 4 * (r * stride + c)), "l"(g),
+                      "r"(ok ? 4 : 0) : "memory");
+    }
+  }
+}
+
+// S = Q K^T for this warp's 16 q rows (r0 = 16 w + g and r0 + 8) against
+// the K tile, in split TF32.  The sum over d runs in another order: in
+// each group of 16 columns, k8 slice 2j + s reads columns 16j + 4t + 2s
+// and + 1 as its fragment columns t and t + 4, the same for Q and K, so
+// one 16-byte read of a row gives a thread both slices' fragment values.
+// Q's A fragments are split once a slice and reused across the n8 blocks.
+// The cross products go to their own accumulators (more independent
+// chains for the tensor pipe), added at the end.
+template <int D>
+__device__ __forceinline__ void f32_scores(float (&s)[4 * Tile<D>::kNb],
+                                           const float* qs, const float* ks,
+                                           int r0, int g, int t) {
+  using L = Tile<D>;
+  float lo[4 * L::kNb];
+#pragma unroll
+  for (int x = 0; x < 4 * L::kNb; ++x) s[x] = lo[x] = 0.0f;
+  const float* qa = qs + r0 * L::kQKStride + 4 * t;
+  const float* kb = ks + g * L::kQKStride + 4 * t;
+#pragma unroll 2
+  for (int d0 = 0; d0 < D; d0 += 16) {
+    const float4 qr = *reinterpret_cast<const float4*>(qa + d0);
+    const float4 qr8 = *reinterpret_cast<const float4*>(
+        qa + 8 * L::kQKStride + d0);
+    uint32_t ab[2][4], as[2][4];
+    split_tf32(qr.x, ab[0][0], as[0][0]);
+    split_tf32(qr8.x, ab[0][1], as[0][1]);
+    split_tf32(qr.y, ab[0][2], as[0][2]);
+    split_tf32(qr8.y, ab[0][3], as[0][3]);
+    split_tf32(qr.z, ab[1][0], as[1][0]);
+    split_tf32(qr8.z, ab[1][1], as[1][1]);
+    split_tf32(qr.w, ab[1][2], as[1][2]);
+    split_tf32(qr8.w, ab[1][3], as[1][3]);
+#pragma unroll
+    for (int nb = 0; nb < L::kNb; ++nb) {
+      const float4 kv = *reinterpret_cast<const float4*>(
+          kb + 8 * nb * L::kQKStride + d0);
+      mma_split(s + 4 * nb, lo + 4 * nb, ab[0], as[0], {kv.x, kv.y});
+      mma_split(s + 4 * nb, lo + 4 * nb, ab[1], as[1], {kv.z, kv.w});
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 4 * L::kNb; ++x) s[x] += lo[x];
+}
+
+// O += P V for this warp's rows, in split TF32 (P split too).  P needs no
+// re-layout: within each k8 slice of keys the A fragment's column c is
+// read as key 2 (c % 4) + c / 4, so a thread's A values are its own
+// accumulator columns {2t, 2t + 1} (a0..a3 = p0, p2, p1, p3), and V's B
+// fragment reads the same keys, rows 2t and 2t + 1 of the slice.  The
+// sum over keys is the same in any order.  The output columns are
+// permuted too: n8 block ob's column n is output column
+// 32 (ob / 4) + 4 n + ob % 4, so one 16-byte read of a V row gives a
+// thread its B values for four n8 blocks (the epilogue undoes it).
+template <int D>
+__device__ __forceinline__ void f32_pv(float (&o)[4 * Tile<D>::kOb],
+                                       const float (&pr)[4 * Tile<D>::kNb],
+                                       const float* vs, int g, int t) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < L::kNb; ++kk) {
+    uint32_t ab[4], as[4];
+    split_tf32(pr[4 * kk], ab[0], as[0]);
+    split_tf32(pr[4 * kk + 2], ab[1], as[1]);
+    split_tf32(pr[4 * kk + 1], ab[2], as[2]);
+    split_tf32(pr[4 * kk + 3], ab[3], as[3]);
+    const float* vb = vs + (8 * kk + 2 * t) * L::kVStride + 4 * g;
+#pragma unroll
+    for (int m = 0; m < D / 32; ++m) {
+      const float4 r0 = *reinterpret_cast<const float4*>(vb + 32 * m);
+      const float4 r1 = *reinterpret_cast<const float4*>(
+          vb + L::kVStride + 32 * m);
+      const float v0[4] = {r0.x, r0.y, r0.z, r0.w};
+      const float v1[4] = {r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* c = o + 4 * (4 * m + j);
+        mma_split(c, c, ab, as, {v0[j], v1[j]});
+      }
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_kernel(const Params p) {
   using L = Tile<D>;
   constexpr int BK = L::kBlockK;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                 // [kBlockQ][kQStride]
-  float* ks = qs + kBlockQ * L::kQStride;           // [BK][kKStride]
-  float* vs = ks + BK * L::kKStride;                // [BK][D]
-  float* ss = vs + BK * D;                          // [kBlockQ][kSStride]
+  const float* qs = smem;
+  const float* kvs = smem + L::kQFloats;   // [stage][K, V]
+  const uint32_t s_q =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t s_kv = s_q + 4 * L::kQFloats;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp + g;          // this thread's rows r0, r0 + 8
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.hq / p.hkv);
-  const int offset = p.tk - p.tq;   // absolute position of q row 0
+  const int q_first = q0 + p.tk - p.tq;  // absolute position of row 0
+  const int q_last = min(q0 + kBlockQ, p.tq) - 1 + p.tk - p.tq;
 
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  // the KV tiles this q tile needs: [k_lo, k_hi)
+  const int k_hi = p.causal ? min(p.tk, q_last + 1) : p.tk;
+  int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
+  k_lo = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb
                     + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb
                     + kvh * p.v_sh;
+  if (n_tiles > 0) {
+    stage_async<D>(s_q, L::kQKStride,
+                   static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
+                   p.q_st, q0, kBlockQ, p.tq, p.vec);
+    stage_async<D>(s_kv, L::kQKStride, kg, p.k_st, k_lo, BK, p.tk, p.vec);
+    stage_async<D>(s_kv + 4 * L::kKFloats, L::kVStride, vg, p.v_st, k_lo, BK,
+                   p.tk, p.vec);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
 
-  stage<D>(qs, L::kQStride, qg, p.q_st, q0, kBlockQ, p.tq, p.scale);
+  float o[4 * L::kOb];
+#pragma unroll
+  for (int x = 0; x < 4 * L::kOb; ++x) o[x] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};                     // this thread's columns only
 
-  // the KV tiles this q tile needs: [k_lo, k_hi)
-  const int q_last = min(q0 + kBlockQ, p.tq) - 1 + offset;
-  const int q_first = q0 + offset;
-  int k_hi = p.causal ? min(p.tk, q_last + 1) : p.tk;
-  int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
-  k_lo = (k_lo / BK) * BK;
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i has landed for every thread, and every warp is done with
+    // tile i - 1, whose stage the copy of tile i + 1 now overwrites
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (i + 1 < n_tiles) {
+      const uint32_t dst = s_kv + 4 * ((i + 1) % 2) * L::kStageFloats;
+      const int k1 = k_lo + (i + 1) * BK;
+      stage_async<D>(dst, L::kQKStride, kg, p.k_st, k1, BK, p.tk, p.vec);
+      stage_async<D>(dst + 4 * L::kKFloats, L::kVStride, vg, p.v_st, k1, BK,
+                     p.tk, p.vec);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
 
-  float acc[L::kRows][L::kGroups][L::kVec];
-  float m[L::kRows], l[L::kRows];
+    const float* ks = kvs + (i % 2) * L::kStageFloats;
+    float sc[4 * L::kNb];
+    f32_scores<D>(sc, qs, ks, r0, g, t);
+    const int k0 = k_lo + i * BK;
+    float alpha[2];
+    if (tile_crosses_band(k0, BK, p.tk, p.causal, p.window, q_first, q_last))
+      online_softmax<true>(sc, m, l, alpha, p, k0, q_first, r0, 2 * t);
+    else
+      online_softmax<false>(sc, m, l, alpha, p, k0, q_first, r0, 2 * t);
 #pragma unroll
-  for (int i = 0; i < L::kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < L::kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < L::kVec; ++e) acc[i][g][e] = 0.0f;
+    for (int x = 0; x < 4 * L::kOb; ++x) o[x] *= alpha[(x / 2) % 2];
+    f32_pv<D>(o, sc, ks + L::kKFloats, g, t);
   }
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();   // the previous tile's K, V and scores are consumed
-    stage<D>(ks, L::kKStride, kg, p.k_st, k0, BK, p.tk, 1.0f);
-    stage<D>(vs, D, vg, p.v_st, k0, BK, p.tk, 1.0f);
-    __syncthreads();
-
-    // scores s[i][j] = q[ty + 16 i] . k[tx + 16 j]
-    float s[L::kRows][L::kCols];
+  // o = O / l (a row masked everywhere has l == 0 and gives zeros); the
+  // thread's columns of n8 blocks 4m .. 4m + 3 are output columns
+  // 32 m + 8 t .. 32 m + 8 t + 7 (see f32_pv)
+  float* og = static_cast<float*>(p.o)
+              + ((long long)b * p.hq + h) * p.tq * D;
 #pragma unroll
-    for (int i = 0; i < L::kRows; ++i)
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.0f / (sum == 0.0f ? 1.0f : sum);
+    const int row = q0 + r0 + 8 * r;
+    if (row >= p.tq) continue;
 #pragma unroll
-      for (int j = 0; j < L::kCols; ++j) s[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 a[L::kRows], c[L::kCols];
-#pragma unroll
-      for (int i = 0; i < L::kRows; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            qs + (ty + 16 * i) * L::kQStride + d);
-#pragma unroll
-      for (int j = 0; j < L::kCols; ++j)
-        c[j] = *reinterpret_cast<const float4*>(
-            ks + (tx + 16 * j) * L::kKStride + d);
-#pragma unroll
-      for (int i = 0; i < L::kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < L::kCols; ++j)
-          s[i][j] += a[i].x * c[j].x + a[i].y * c[j].y + a[i].z * c[j].z
-                     + a[i].w * c[j].w;
+    for (int mm = 0; mm < D / 32; ++mm) {
+      float* dst = og + (long long)row * D + 32 * mm + 8 * t;
+      const float* c = o + 16 * mm + 2 * r;   // n8 block 4 mm + j: c[4 j]
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(c[0] * inv, c[4] * inv, c[8] * inv, c[12] * inv);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(c[1] * inv, c[5] * inv, c[9] * inv, c[13] * inv);
     }
-
-    // mask, online softmax, rescale; p goes to shared memory
-#pragma unroll
-    for (int i = 0; i < L::kRows; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r + offset;
-      bool ok[L::kCols];
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < L::kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < p.tk && q0 + r < p.tq;
-        if (p.causal) ok[j] = ok[j] && kpos <= qpos;
-        if (p.window > 0) ok[j] = ok[j] && kpos > qpos - p.window;
-        s[i][j] = ok[j] ? s[i][j] : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < L::kCols; ++j) {
-        const float e = ok[j] ? __expf(s[i][j] - m_new) : 0.0f;
-        ss[r * L::kSStride + tx + 16 * j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = __expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < L::kGroups; ++g)
-#pragma unroll
-        for (int e = 0; e < L::kVec; ++e) acc[i][g][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += p v
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pr[L::kRows];
-#pragma unroll
-      for (int i = 0; i < L::kRows; ++i)
-        pr[i] = ss[(ty + 16 * i) * L::kSStride + kk];
-#pragma unroll
-      for (int g = 0; g < L::kGroups; ++g) {
-        const float* vrow = vs + kk * D + L::kVec * tx + 16 * L::kVec * g;
-        float vv[L::kVec];
-        if constexpr (L::kVec == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vrow);
-          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
-          const float2 t = *reinterpret_cast<const float2*>(vrow);
-          vv[0] = t.x; vv[1] = t.y;
-        }
-#pragma unroll
-        for (int i = 0; i < L::kRows; ++i)
-#pragma unroll
-          for (int e = 0; e < L::kVec; ++e) acc[i][g][e] += pr[i] * vv[e];
-      }
-    }
-  }
-
-  // o = acc / l (a row masked everywhere has l == 0 and gives zeros)
-  float* og = static_cast<float*>(p.o) + ((long long)b * p.hq + h) * p.tq * D;
-#pragma unroll
-  for (int i = 0; i < L::kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= p.tq) continue;
-    const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
-#pragma unroll
-    for (int g = 0; g < L::kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < L::kVec; ++e)
-        og[(long long)r * D + L::kVec * tx + 16 * L::kVec * g + e] =
-            acc[i][g][e] * inv;
   }
 }
 
@@ -294,7 +480,7 @@ int launch_f32(const Params& p, int b, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.tq + kBlockQ - 1) / kBlockQ, p.hq, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  kernel<<<grid, kF32Threads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,7 +490,6 @@ constexpr int kConsumers = 128;              // one warpgroup
 constexpr int kWgThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBlockKV = 64;                 // KV rows per tile
 constexpr int kStages = 2;                   // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct WgParams {
   __nv_bfloat16* o;                // [B, Hq, Tq, D], contiguous
@@ -459,14 +644,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 #undef WG_F16
 #undef WG_F4
 
-// 2^x on the special-function unit, without exp2f's accurate path: its
-// relative error (~2^-22) is far inside the bf16 rounding of p.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -500,52 +677,6 @@ __device__ __forceinline__ void mma_pv(
     for (int c = 0; c < L::kChunks; ++c)
       wgmma_rs(o[c], pa[kk], mnmajor_desc<D>(vs + c * L::kChunkBytes
                                              + 16 * kk * L::kRowBytes));
-}
-
-// The online softmax of one tile of scores (KV rows k0..k0 + 63), in
-// place: scales them into the log2 domain, masks them if kMask (a tile
-// that crosses a band edge or the end of Tk), and turns them into
-// p = exp2(s - m) against the rows' new maxima m; alpha gets each row's
-// rescale factor and l (this thread's columns only) the rows' sums of p.
-template <bool kMask>
-__device__ __forceinline__ void online_softmax(
-    float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    const WgParams& p, int k0, int q_first, int r0, int c0) {
-  uint32_t keep = 0;                             // bit x: sc[x] is unmasked
-  if constexpr (kMask) {
-#pragma unroll
-    for (int x = 0; x < 32; ++x) {
-      const int kpos = k0 + 8 * (x / 4) + c0 + x % 2;
-      const int qpos = q_first + r0 + 8 * ((x / 2) % 2);
-      bool ok = kpos < p.tk;
-      if (p.causal) ok = ok && kpos <= qpos;
-      if (p.window > 0) ok = ok && kpos > qpos - p.window;
-      keep |= static_cast<uint32_t>(ok) << x;
-    }
-  }
-  float mt[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int x = 0; x < 32; ++x) {
-    sc[x] *= p.scale_log2;
-    if constexpr (kMask) sc[x] = (keep >> x) & 1u ? sc[x] : kNegInf;
-    mt[(x / 2) % 2] = fmaxf(mt[(x / 2) % 2], sc[x]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-    const float m_new = fmaxf(m[r], mt[r]);
-    alpha[r] = fast_exp2(m[r] - m_new);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int x = 0; x < 32; ++x) {
-    const int r = (x / 2) % 2;
-    sc[x] = fast_exp2(sc[x] - m[r]);
-    if constexpr (kMask) sc[x] = (keep >> x) & 1u ? sc[x] : 0.0f;
-    l[r] += sc[x];
-  }
 }
 
 // p in bf16 as the A fragments of four k16 slices: element x goes to
@@ -657,8 +788,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(empty_k + 8 * s);
     const int k0 = k_lo + i * kBlockKV;
     float alpha[2];
-    if (k0 + kBlockKV > p.tk || (p.causal && k0 + kBlockKV - 1 > q_first)
-        || (p.window > 0 && k0 <= q_last - p.window))
+    if (tile_crosses_band(k0, kBlockKV, p.tk, p.causal, p.window, q_first,
+                          q_last))
       online_softmax<true>(sc, m, l, alpha, p, k0, q_first, r0, c0);
     else
       online_softmax<false>(sc, m, l, alpha, p, k0, q_first, r0, c0);
@@ -761,7 +892,7 @@ int launch_bf16(const Params& p, int b, cudaStream_t stream) {
                         kv ? p.v_sh : p.q_sh, kv ? p.v_sb : p.q_sb))
     return kBadTensorMap;
   const WgParams wp{static_cast<__nv_bfloat16*>(p.o), p.hq, p.hkv, p.tq,
-                    p.tk, p.causal, p.window, p.scale * kLog2e};
+                    p.tk, p.causal, p.window, p.scale_log2};
   constexpr int bytes = WgTile<D>::kSmemBytes;
   auto kernel = flash_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -804,8 +935,17 @@ int flash_attn_forward(const void* q, const void* k, const void* v, void* o,
                        void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || tq < 1 || tk < 0)
     return kBadArgs;
+  // cp.async copies f32 tiles 16 bytes at a time where every base and
+  // row, head and batch stride is a whole 16 bytes
+  const auto on16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const bool vec = on16(q) && on16(k) && on16(v)
+                   && (q_sb | q_sh | q_st | k_sb | k_sh | k_st | v_sb | v_sh
+                       | v_st) % 4 == 0;
   const Params p{q, k, v, o, q_sb, q_sh, q_st, k_sb, k_sh, k_st,
-                 v_sb, v_sh, v_st, hq, hkv, tq, tk, causal, window, scale};
+                 v_sb, v_sh, v_st, hq, hkv, tq, tk, causal, window,
+                 scale * kLog2e, vec ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (d) {

@@ -43,26 +43,37 @@ __device__ __forceinline__ void stage_intensities(
 }
 
 // Packed word k of cycle t's spike row: bit i fires iff
-// counter_hash(seed, t, 32k + i) & 0xFF < intensity[32k + i].  in_s is
-// 4-byte aligned; byte j of its little-endian word q is input 4q + j.
-__device__ __forceinline__ uint32_t draw_word(const uint8_t* in_s,
-                                              uint32_t seed, uint32_t t,
-                                              int k) {
-  const uint32_t* px = reinterpret_cast<const uint32_t*>(in_s) + 8 * k;
+// counter_hash(seed, t, 32k + i) & 0xFF < intensity[32k + i].  px holds
+// the word's 32 intensities, little-endian: byte j of px[q] is input
+// 32k + 4q + j.
+__device__ __forceinline__ uint32_t draw_word_from(const uint32_t (&px)[8],
+                                                   uint32_t seed, uint32_t t,
+                                                   int k) {
   const uint32_t base = 32u * static_cast<uint32_t>(k);
   uint32_t word = 0;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const uint32_t four = px[q];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = 4 * q + j;
       const uint32_t h = counter_hash(seed, t, base + i);
-      const uint32_t in = (four >> (8 * j)) & 0xFFu;
+      const uint32_t in = (px[q] >> (8 * j)) & 0xFFu;
       word |= static_cast<uint32_t>((h & 0xFFu) < in) << i;
     }
   }
   return word;
+}
+
+// The same with the intensities staged in shared memory: in_s is 4-byte
+// aligned, and word k's are its bytes 32k .. 32k + 31.
+__device__ __forceinline__ uint32_t draw_word(const uint8_t* in_s,
+                                              uint32_t seed, uint32_t t,
+                                              int k) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(in_s) + 8 * k;
+  uint32_t px[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) px[q] = words[q];
+  return draw_word_from(px, seed, t, k);
 }
 
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {

@@ -12,11 +12,13 @@ h // (Hq // Hkv); the masks are causal and a sliding ``window``; a row
 masked everywhere gives zeros.  The kernel takes any Tq and Tk (it masks
 the ragged edge itself), bf16 or float32, head_dim 32, 64, 128 or 256,
 and q, k, v with any strides whose last one is 1 (the transposed views of
-a fused qkv projection).  bf16 runs on the tensor cores and reads its
-operands with TMA, which needs each base address 16-byte aligned and
-each stride a whole number of 16 bytes (8 elements); float32 runs on the
-CUDA cores in full float32.  This is the counterpart of the JAX package's
-Pallas ``flash_attention``, which needs Tq and Tk in whole blocks.
+a fused qkv projection).  Both dtypes run on the tensor cores.  bf16
+reads its operands with TMA, which needs each base address 16-byte
+aligned and each stride a whole number of 16 bytes (8 elements); float32
+runs split TF32 (each operand split into two TF32 halves, three products
+summed in float32, about float32's accuracy) and takes any alignment.
+This is the counterpart of the JAX package's Pallas ``flash_attention``,
+which needs Tq and Tk in whole blocks.
 
 The wrapper counts its launches in ``flash_attention.launches``
 (``ops.launch_counts()`` lists it beside the SNN kernels).

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -68,10 +69,11 @@ _ROW_TOO_WIDE = -1        # the launchers' code for a row that does not fit
 # p a pointer (a launcher's stream is its last), i an int, l a 64-bit
 # int, f a float.
 _SIGNATURES = {
-    "snn_infer": (("snn_infer_window_batch_encode", "ppppp iiiiiii p", "i"),
+    "snn_infer": (("snn_infer_window_batch_encode", "pppppp iiiiiii p", "i"),
                   ("snn_infer_window_batch", "ppp iiiiii p", "i"),
-                  ("snn_tile_rows", "iii", "i"),
-                  ("snn_smem_bytes", "iii", "l")),
+                  ("snn_infer_encode_plan", "iiii p", "i"),
+                  ("snn_tile_rows", "ii", "i"),
+                  ("snn_smem_bytes", "ii", "l")),
     "snn_train": (("snn_train_window_batch", "pppppppppp iiiiiiiii p", "i"),
                   ("snn_train_window_batch_encode",
                    "ppppppppppp iiiiiiiiii p", "i"),
@@ -118,17 +120,50 @@ def load_kernels() -> None:
     _libraries()
 
 
-def tile_rows(n: int, words: int, encode: bool) -> int:
-    """Neurons per thread block the kernel takes for an ``n``-neuron,
-    ``words``-wide bank on the current card (0: one row does not fit
-    its shared memory).  The layout lives in ``csrc/snn_infer.cu``."""
-    return _libraries()["snn_infer"].snn_tile_rows(n, words, int(encode))
+def tile_rows(n: int, words: int) -> int:
+    """Neurons per thread block the pre-packed serving kernel
+    (:func:`infer_window_batch`) takes for an ``n``-neuron,
+    ``words``-wide bank on the current card (0: one row does not fit its
+    shared memory).  The layout lives in ``csrc/snn_infer.cu``."""
+    return _libraries()["snn_infer"].snn_tile_rows(n, words)
 
 
-def smem_bytes(rows: int, words: int, encode: bool) -> int:
-    """Shared-memory bytes of one block holding ``rows`` neurons."""
-    return _libraries()["snn_infer"].snn_smem_bytes(rows, words,
-                                                    int(encode))
+def smem_bytes(rows: int, words: int) -> int:
+    """Shared-memory bytes of one pre-packed block holding ``rows``."""
+    return _libraries()["snn_infer"].snn_smem_bytes(rows, words)
+
+
+class EncodePlan(NamedTuple):
+    """How :func:`infer_window_batch_encode` runs a shape on a card."""
+    regime: str          # "window" (one cluster a sample) or "gemm"
+    cluster: int         # blocks a sample in the window regime
+    smem_bytes: int      # shared bytes a block in the window regime
+
+
+@functools.cache
+def _encode_plan(dev: int, b: int, n: int, words: int,
+                 n_steps: int) -> EncodePlan:
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        err = _libraries()["snn_infer"].snn_infer_encode_plan(
+            b, n, words, n_steps, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"infer_window_batch_encode: planning failed "
+                           f"({err})")
+    return EncodePlan(("window", "gemm")[out[0]], out[1], out[2])
+
+
+def encode_plan(b: int, n: int, words: int, n_steps: int,
+                device=None) -> EncodePlan:
+    """The regime the encode serving kernel picks for ``b`` samples of an
+    ``n``-neuron, ``words``-wide bank over ``n_steps`` cycles on the card
+    (the current one, or ``device``): the window regime where a sample's
+    weights, sums and a share of its window fit a block's shared memory,
+    else the GEMM regime (a draw launch into a scratch window, then the
+    sums and the LIF scan).  The choice lives in ``csrc/snn_infer.cu``."""
+    dev = torch.device("cuda" if device is None else device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _encode_plan(idx, b, n, words, n_steps)
 
 
 def train_tile_rows(n: int, words: int, encode: bool, learn: bool) -> int:
@@ -240,7 +275,9 @@ def infer_window_batch_encode(weights: torch.Tensor,
     spikes are drawn from the counter hash; cycles at or past a sample's
     ``t_total`` change nothing.  Equal in counts to host-encode +
     zero-mask + :func:`infer_window_batch` for ``threshold >= 1``, which
-    the kernel requires.
+    the kernel requires.  On a card the kernel runs in the regime
+    :func:`encode_plan` names; the GEMM regime takes a scratch window
+    int32[B, n_steps, w], allocated here.
     """
     _check_backend(backend)
     dev = weights.device
@@ -272,10 +309,14 @@ def infer_window_batch_encode(weights: torch.Tensor,
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return counts.zero_()
+    scratch = (torch.empty((b, n_steps, w), dtype=torch.int32, device=dev)
+               if encode_plan(b, n, w, n_steps, dev).regime == "gemm"
+               else None)
     _launch(what, "snn_infer", "snn_infer_window_batch_encode", dev,
             weights.data_ptr(), intensities.data_ptr(), sd.data_ptr(),
-            tt.data_ptr(), counts.data_ptr(), b, n, w, n_in, n_steps,
-            threshold, leak)
+            tt.data_ptr(), counts.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, n, w, n_in,
+            n_steps, threshold, leak)
     infer_window_batch_encode.launches += 1
     return counts
 

@@ -1,5 +1,5 @@
-"""Device time of the SNN training-window and step kernels, for comparing
-two checkouts on one card.
+"""Device time of the port's kernels, for comparing two checkouts on one
+card.
 
     PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py
 
@@ -7,14 +7,18 @@ times the kernels of whichever ``repro_torch`` is on the path (its own
 ``build/`` holds its libraries), so the same script run against a parent
 checkout and this one, in turns within one call, compares the two.  It
 uses only the ops both sides have; the stream form is timed where it
-exists.  Shapes follow ``chip_smoke.py`` phase 3: the trainer's digits
-at 784-40 ("train-parallel": B = 4 streams of 10 neurons, T = 72; the
+exists.  Shapes follow ``chip_smoke.py``: phase 3's trainer digits at
+784-40 ("train-parallel": B = 4 streams of 10 neurons, T = 72; the
 read-only windows one stream; the fused step one cycle of the four
-streams; the stream form 8 samples shared by the four) and the
-synthetic "large" (65,536 inputs, 1,000 neurons, the same B).  Each
-time is the profiler's device time per launch of the kernel's own
-symbol over ``--reps`` calls; every output is first held equal to the
-plain version.  Prints one JSON line.
+streams; the stream form 8 samples shared by the four) and the synthetic
+"large" (65,536 inputs, 1,000 neurons, the same B); phase 3's serving
+shapes for both serving kernels ("paper": B = 32, 784-40, T = 72, ragged
+lengths; "canary": T = 8; "large": B = 16, 65,536 inputs, 1,000 neurons);
+and phase 8a's six flash-attention shapes in float32 and bfloat16.  Each
+time is the profiler's device time per call of the kernels whose name
+holds the op's symbol over ``--reps`` calls; every output is first held
+equal to the plain version (flash: within the dtype's tolerance).
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -44,9 +48,8 @@ def _device_ms(fn, symbol: str, reps: int) -> float:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if symbol in e.key and e.device_time_total > 0]
-        if rows:
-            return (sum(e.device_time_total for e in rows)
-                    / sum(e.count for e in rows) / 1e3)
+        if rows:     # each kernel of a call (the encode op may launch two)
+            return sum(e.device_time_total / e.count for e in rows) / 1e3
     raise RuntimeError(f"the profiler recorded no {symbol} in "
                        f"{_PROFILER_TRIES} sessions")
 
@@ -93,6 +96,81 @@ def _operands(shape: str, dev: torch.device) -> dict:
         .astype(np.int32)).to(dev)
     o["wins"] = encode_windows_host(o["seeds"][:b], o["inten"][:b], 72, words)
     return dict(o, b=b, n=n, kw=kw)
+
+
+# (name, B, n_in, n, T, threshold, leak): chip_smoke.py phase 3
+_SERVING_SHAPES = (("paper", 32, 784, 40, 72, 192, 16),
+                   ("canary", 32, 784, 40, 8, 192, 16),
+                   ("large", 16, 65536, 1000, 72, 16384, 256))
+# (name, B, Hq, Hkv, D, T, causal, window): chip_smoke.py phase 8a
+_FLASH_SHAPES = (
+    ("gemma-global", 1, 4, 1, 256, 2048, True, None),
+    ("gemma-local", 1, 4, 1, 256, 2048, True, 512),
+    ("ragged-37", 1, 4, 1, 256, 37, True, 512),
+    ("ragged-1000", 1, 4, 1, 256, 1000, True, 512),
+    ("gqa-noncausal", 2, 8, 2, 128, 512, False, None),
+    ("starcoder2-3b", 1, 24, 2, 128, 1024, True, None),
+)
+_FLASH_DTYPES = ((torch.float32, "f32", 1e-4, "flash_fwd_kernel"),
+                 (torch.bfloat16, "bf16", 3e-2, "flash_wgmma_kernel"))
+
+
+def _serving_times(ops, dev, reps: int) -> dict:
+    from repro_torch.core.bitpack import as_words
+    from repro_torch.core.encoder import encode_windows_host
+
+    out = {}
+    for name, b, n_in, n, t, thr, leak in _SERVING_SHAPES:
+        rng = np.random.default_rng(0x22A + n)
+        words = -(-n_in // 32)
+        w = as_words(rng.integers(0, 2**32, (n, words), dtype=np.uint32),
+                     dev)
+        inten = rng.integers(0, 256, (b, n_in), dtype=np.uint8)
+        inten[rng.random((b, n_in)) < 0.6] = 0
+        x = torch.from_numpy(inten).to(dev)
+        seeds = torch.from_numpy(
+            rng.integers(-2**31, 2**31, b).astype(np.int32)).to(dev)
+        tt_np = rng.integers(0, t + 1, b).astype(np.int32)
+        tt_np[0], tt_np[-1] = 0, t
+        tt = torch.from_numpy(tt_np).to(dev)
+        wins = encode_windows_host(seeds, x, t, words, tt)
+        kw = dict(threshold=thr, leak=leak)
+        calls = {
+            "infer_window_batch_encode": (
+                "infer_window_enc_",
+                lambda be: ops.infer_window_batch_encode(
+                    w, x, seeds, n_steps=t, t_total=tt, backend=be, **kw)),
+            "infer_window_batch": (
+                "infer_window_kernel",
+                lambda be: ops.infer_window_batch(w, wins, backend=be, **kw)),
+        }
+        for kname, (symbol, call) in calls.items():
+            _same((call("kernel"),), (call("ref"),))
+            out[f"{kname} @ {name}"] = _device_ms(
+                lambda: call("kernel"), symbol,
+                max(reps // 10, 3) if name == "large" else reps)
+    return out
+
+
+def _flash_times(dev, reps: int) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    out = {}
+    for name, b, hq, hkv, d, t, causal, window in _FLASH_SHAPES:
+        rng = np.random.default_rng(t + d)
+        base = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(dev) for s in ((b, hq, t, d), (b, hkv, t, d),
+                                   (b, hkv, t, d))]
+        for dtype, dname, tol, symbol in _FLASH_DTYPES:
+            q, k, v = (x.to(dtype) for x in base)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention(q, k, v, backend="ref", **kw)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            out[f"flash_attention {dname} @ {name}"] = _device_ms(
+                lambda: flash_attention(q, k, v, **kw), symbol, reps)
+    return out
 
 
 def _same(got, want) -> None:
@@ -159,6 +237,8 @@ def main(argv=None) -> None:
             out[f"{name} @ {shape}"] = ms
             if name == "train_stream_batch_encode":
                 out[f"{name} @ {shape} per sample"] = ms / 8
+    out.update(_serving_times(ops, dev, args.reps))
+    out.update(_flash_times(dev, max(args.reps // 2, 3)))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "times_ms": out}), flush=True)
 

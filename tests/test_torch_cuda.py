@@ -81,25 +81,75 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,words,encode", [(40, 25, True), (1000, 2048, True),
-                                            (1000, 2048, False),
-                                            (7, 1, False)])
-def test_tile_rows_fit_shared_memory(cuda, n, words, encode):
-    rows = ops.tile_rows(n, words, encode)
+@pytest.mark.parametrize("n,words", [(40, 25), (1000, 2048), (7, 1)])
+def test_tile_rows_fit_shared_memory(cuda, n, words):
+    rows = ops.tile_rows(n, words)
     props = torch.cuda.get_device_properties(cuda)
     limit = props.shared_memory_per_block_optin
     assert 1 <= rows <= n
-    assert ops.smem_bytes(rows, words, encode) <= limit
+    assert ops.smem_bytes(rows, words) <= limit
 
 
 @pytest.mark.gpu
 def test_tile_rows_rejects_rows_wider_than_shared_memory(cuda):
-    assert ops.tile_rows(4, 8192, encode=True) == 0
-    w = torch.zeros((4, 8192), dtype=torch.int32, device=cuda)
-    x = torch.zeros((1, 64), dtype=torch.uint8, device=cuda)
+    """The pre-packed kernel stages whole rows: one of 32,768 words does
+    not fit.  The encode kernel's GEMM regime stages word chunks, so it
+    takes rows that wide (8,192 words here) and equals its plain version."""
+    assert ops.tile_rows(4, 32768) == 0
+    w = torch.zeros((4, 32768), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        ops.infer_window_batch_encode(w, x, 0, n_steps=2, threshold=1,
-                                      leak=0)
+        ops.infer_window_batch(w, torch.zeros((1, 2, 32768), dtype=torch.int32,
+                                              device=cuda),
+                               threshold=1, leak=0)
+    rng = np.random.default_rng(4)
+    w = as_words(rng.integers(0, 2**32, (4, 8192), dtype=np.uint32), cuda)
+    x = torch.from_numpy(rng.integers(0, 256, (1, 8192 * 32),
+                                      dtype=np.uint8)).to(cuda)
+    assert ops.encode_plan(1, 4, 8192, 2).regime == "gemm"
+    kw = dict(n_steps=2, threshold=1, leak=0)
+    got = ops.infer_window_batch_encode(w, x, 3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.infer_window_batch_encode(w, x, 3,
+                                                          backend="ref", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n_in,n,t,regime", [
+    (32, 784, 40, 72, "window"),      # the paper's shape: a cluster of 4
+    (32, 784, 40, 8, "window"),       # the canary's
+    (1, 784, 40, 72, "window"),       # a cluster of 8
+    (33, 100, 37, 16, "window"),
+    (3, 4096, 130, 9, "window"),
+    (2, 65536, 130, 72, "gemm"),
+    (5, 784, 1000, 75, "gemm"),       # two passes of 72 cycles
+])
+def test_cuda_encode_regimes_equal_plain_and_prepacked(cuda, b, n_in, n, t,
+                                                       regime):
+    """Each regime the encode launcher picks equals the plain version
+    (t_total 0, partial and T among the samples, threshold 1 and higher)
+    and the pre-packed kernel on the host-encoded windows."""
+    from repro_torch.core.encoder import encode_windows_host
+    bank, inten, seeds, t_total = _encode_operands(n + t, b, n_in, n, t)
+    w = as_words(bank, cuda)
+    x = torch.from_numpy(inten).to(cuda)
+    sd = torch.from_numpy(seeds).to(cuda)
+    tt = torch.from_numpy(t_total).to(cuda)
+    plan = ops.encode_plan(b, n, bank.shape[1], t)
+    assert plan.regime == regime
+    if (b, t) == (32, 72):
+        assert plan.cluster == min(8, torch.cuda.get_device_properties(
+            cuda).multi_processor_count // 32)
+    for thr in (1, n_in // 8):
+        kw = dict(n_steps=t, threshold=thr, leak=3, t_total=tt)
+        got = ops.infer_window_batch_encode(w, x, sd, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.infer_window_batch_encode(
+            w, x, sd, backend="ref", **kw))
+        if b > 1:
+            assert not got[0].any()             # t_total[0] == 0
+        wins = encode_windows_host(sd, x, t, bank.shape[1], tt)
+        assert torch.equal(got, ops.infer_window_batch(w, wins, threshold=thr,
+                                                       leak=3))
 
 
 def _serving(cuda, on_launch):
@@ -649,6 +699,30 @@ def test_cuda_flash_attention_reads_strided_views(cuda):
                            window=30)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+def test_cuda_flash_f32_takes_any_alignment(cuda, d):
+    """f32 q, k, v at gemma3-1b's widths as views of one fused projection,
+    and the same one float off 16 bytes (the kernel then copies 4 bytes at
+    a time instead of 16): both equal the call on contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, t, hq, hkv = 2, 300, 4, 1
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.standard_normal(
+        b * t * (hq + 2 * hkv) * d + 1, dtype=np.float32)).to(cuda)
+    for off in (0, 1):
+        qkv = flat[off:off + b * t * (hq + 2 * hkv) * d].view(b, t, -1)
+        q, k, v = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+        q, k, v = (x.reshape(b, t, -1, d).transpose(1, 2) for x in (q, k, v))
+        assert (q.data_ptr() % 16 != 0) == bool(off)
+        for window in (None, 100):
+            got = flash_attention(q, k, v, window=window)
+            want = flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -125,3 +125,82 @@ def test_seed_vector_takes_seeds_mod_2_32():
     assert ops.seed_vector(neg, 3, torch.device("cpu")) is neg
     assert torch.equal(ops.seed_vector(2**32 + 5, 2, torch.device("cpu")),
                        torch.tensor([5, 5], dtype=torch.int32))
+
+
+# --- the encode kernel's order of work, modelled in numpy --------------------
+#
+# ``infer_window_enc_kernel`` (and its GEMM regime) no longer runs a cycle
+# at a time: it draws a sample's whole window, takes every synaptic sum
+# c[t][i] = popcount(pre_t & w_i) at once (they depend on no state), and
+# only then scans the LIF over them, stopping at t_total.  The model below
+# does the same, in numpy, apart from the JAX package and the port.
+
+def _counter_hash(seed, cycle, idx):
+    """The counter hash in wrapping uint32 numpy arithmetic."""
+    h = (np.uint32(seed) + np.asarray(cycle, np.uint32) * np.uint32(0x9E3779B9)
+         + np.asarray(idx, np.uint32) * np.uint32(0x85EBCA6B))
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x7FEB352D)
+    h ^= h >> np.uint32(15)
+    h *= np.uint32(0x846CA68B)
+    return h ^ (h >> np.uint32(16))
+
+
+def _popcount(x):
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1, dtype=np.int64)
+
+
+def kernel_order_model(bank, inten, seeds, t_total, n_steps, threshold,
+                       leak):
+    """counts int32[B, n]: the window drawn whole, all sums, the scan."""
+    n, w = bank.shape
+    counts = np.zeros((inten.shape[0], n), np.int32)
+    idx = np.arange(32 * w, dtype=np.uint32)
+    for b, (x, seed) in enumerate(zip(inten, seeds)):
+        t_end = int(np.clip(t_total[b], 0, n_steps))
+        xp = np.zeros(32 * w, np.uint32)
+        xp[:x.size] = x
+        t = np.arange(t_end, dtype=np.uint32)[:, None]
+        bits = (_counter_hash(np.int32(seed).view(np.uint32), t, idx)
+                & np.uint32(0xFF)) < xp
+        pre = (bits.reshape(t_end, w, 32).astype(np.uint32)
+               << np.arange(32, dtype=np.uint32)).sum(-1, dtype=np.uint32)
+        c = _popcount((pre[:, None, :] & bank[None])[..., None])  # [t, n, w]
+        c = c.sum(-1)                                             # all sums
+        v = np.zeros(n, np.int64)
+        for ct in c:                                    # the only serial part
+            v = v + ct
+            fired = v >= threshold
+            v = np.where(fired, 0, np.maximum(v - leak, 0))
+            counts[b] += fired
+    return counts
+
+
+@pytest.mark.parametrize("b,n_in,n,t,threshold", [
+    (1, 784, 37, 72, 192), (33, 784, 37, 24, 192), (4, 100, 130, 9, 1),
+    (33, 100, 37, 16, 1), (2, 4096, 130, 12, 192), (1, 4096, 37, 5, 1)])
+def test_encode_kernel_order_equals_jax(b, n_in, n, t, threshold):
+    bank, inten, seeds, t_total = _encode_operands(n_in + b, b, n_in, n, t)
+    if b > 2:
+        t_total[1] = t // 2                      # partial
+    leak = 3
+    got = kernel_order_model(bank, inten, seeds, t_total, t, threshold, leak)
+    want = jops.infer_window_batch_encode(
+        jnp.asarray(bank), jnp.asarray(inten), jnp.asarray(seeds),
+        n_steps=t, threshold=threshold, leak=leak,
+        t_total=jnp.asarray(t_total), backend="ref")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if b > 1:
+        assert not got[0].any()                  # t_total 0
+    assert got.sum() > 0
+
+
+def test_encode_kernel_order_equals_pallas_interp():
+    bank, inten, seeds, t_total = _encode_operands(11, 3, 100, 37, 9)
+    got = kernel_order_model(bank, inten, seeds, t_total, 9, 1, 2)
+    want = jops.infer_window_batch_encode(
+        jnp.asarray(bank), jnp.asarray(inten), jnp.asarray(seeds),
+        n_steps=9, threshold=1, leak=2, t_total=jnp.asarray(t_total),
+        backend="interp")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got.sum() > 0

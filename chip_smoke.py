@@ -9,14 +9,16 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 2. Build: compiles the kernel libraries with ``nvcc`` into ``build/``
    (``snn_infer.cu``, ``snn_train.cu``, ``snn_step.cu`` and
    ``flash_attn.cu``, one compiler each, at once) and prints their ptxas
-   lines.
+   lines; the serving GEMM regime's two sums kernels must not spill.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the
    card (every output ``torch.equal``), then timed, with its bound.
    Serving kernels: the paper's shape (B = 32, 784 inputs, 40 neurons,
    T = 72, ragged lengths including 0), the canary's, and a large
-   synthetic one (B = 16, 65,536 inputs, 1,000 neurons); the encode
+   synthetic one (B = 16, 65,536 inputs, 1,000 neurons); each serving
    kernel's regime at each is printed (window at the first two, GEMM at
-   large) and it is timed over all the kernels a call launches.  Training
+   large) and each is timed over all the kernels a call launches; the
+   pre-packed kernel equals the encode kernel at every shape, and its
+   plain version at threshold 0 too and on a 32,768-word bank.  Training
    kernels: "train-parallel" (B = 4 streams of 10 neurons, 784 inputs,
    T = 72, ltp_prob [16, 1023, 1023, 1023]: the trainer's parallel
    launch at 784-40), "train-active" (B = 1: active mode's launch) and
@@ -133,8 +135,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/snn_infer.cu"
 # the encode serving op's kernels: the window regime's one, or the GEMM
-# regime's draw and sums
+# regime's draw and sums; the pre-packed op's: its window regime's, or
+# its GEMM regime's sums
 ENCODE_SYMBOL = "infer_window_enc_"
+PREPACKED_SYMBOL = "infer_window_pre_"
+# the GEMM regime's sums kernels, whose builds must not spill
+SUMS_SYMBOLS = ("infer_window_enc_sums_kernel", "infer_window_pre_sums_kernel")
 TRAIN_SOURCE = "src/repro_torch/kernels/csrc/snn_train.cu"
 STEP_SOURCE = "src/repro_torch/kernels/csrc/snn_step.cu"
 PALLAS = "src/repro/kernels/snn_kernels.py"
@@ -382,13 +388,11 @@ def phase_kernels(rates: Rates) -> dict:
                 int(tt_np.clip(0, t).sum()), True, ENCODE_SYMBOL),
             "infer_window_batch": (
                 lambda be: ops.infer_window_batch(w, wins, backend=be, **kw),
-                b * t, False, "infer_window_kernel"),
+                b * t, False, PREPACKED_SYMBOL),
         }
-        plan = ops.encode_plan(b, n, words, t)
-        print(f"infer_window_batch_encode @ {name}: {plan.regime} regime"
-              + (f", a cluster of {plan.cluster} blocks a sample, "
-                 f"{plan.smem_bytes} shared bytes a block"
-                 if plan.regime == "window" else ""), flush=True)
+        for kname in calls:
+            print_plan(kname, name, ops.encode_plan(
+                b, n, words, t, encode=kname == "infer_window_batch_encode"))
         got_by_kernel = {}
         for kname, (call, active, encode, symbol) in calls.items():
             timing, got = hold_and_time(
@@ -404,7 +408,42 @@ def phase_kernels(rates: Rates) -> dict:
         if not torch.equal(got_by_kernel["infer_window_batch_encode"],
                            got_by_kernel["infer_window_batch"]):
             fail(f"in-kernel encode and host encode disagree at {name}")
+        # threshold 0: every cycle fires, the zero-masked tail included
+        hold_prepacked(f"{name}, threshold 0", w, wins, 0, leak)
+    # a 32,768-word bank (a row of 128 KiB): the GEMM regime
+    rng = np.random.default_rng(0x8000)
+    b, n, words, t = 4, 16, 32768, 8
+    w = as_words(rng.integers(0, 2**32, (n, words), dtype=np.uint32), dev)
+    wins = as_words(rng.integers(0, 2**32, (b, t, words), dtype=np.uint32)
+                    & rng.integers(0, 2**32, (b, t, words), dtype=np.uint32),
+                    dev)
+    print_plan("infer_window_batch", "bank-32768",
+               ops.encode_plan(b, n, words, t, encode=False))
+    for thr in (0, 1, 8 * words):
+        hold_prepacked(f"bank-32768 (B={b}, n={n}, w={words}, T={t}), "
+                       f"threshold {thr}", w, wins, thr, 3)
     return out
+
+
+def print_plan(kname: str, shape: str, plan) -> None:
+    print(f"{kname} @ {shape}: {plan.regime} regime, a cluster of "
+          f"{plan.cluster} blocks a "
+          f"{'sample' if plan.regime == 'window' else '(tile, sample)'}, "
+          f"{plan.smem_bytes} shared bytes a block", flush=True)
+
+
+def hold_prepacked(what: str, w, wins, threshold: int, leak: int) -> None:
+    """The pre-packed kernel ``torch.equal`` to its plain version."""
+    from repro_torch.kernels import ops
+
+    kw = dict(threshold=threshold, leak=leak)
+    got = ops.infer_window_batch(w, wins, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ops.infer_window_batch(w, wins, backend="ref",
+                                                   **kw)):
+        fail(f"infer_window_batch at {what} differs from its plain version")
+    print(f"kernel infer_window_batch @ {what}: equal=True "
+          f"spikes={int(got.sum())}", flush=True)
 
 
 def train_bound(rates: Rates, *, b: int, n: int, words: int, n_in: int,
@@ -973,7 +1012,10 @@ def phase_train_trace(x, labels, cycle_backend: str = "window") -> None:
 STEP_KERNELS = ("fused_snn_step", "spike_process", "lif_step", "stdp_update")
 STEP_SYMBOLS = {"fused_snn_step": "fused_step_kernel",
                 "spike_process": "spike_process_kernel",
-                "lif_step": "lif_kernel", "stdp_update": "stdp_kernel"}
+                "lif_step": "lif_kernel",
+                # stdp_short_kernel, stdp_long_kernel or stdp_wide_kernel,
+                # by the row's width
+                "stdp_update": "stdp_"}
 
 
 def step_bound(rates: Rates, kname: str, *, b: int, n: int, words: int,
@@ -1463,6 +1505,41 @@ def fused_views(q, k, v):
             v2.reshape(b, t, hkv, d).transpose(1, 2))
 
 
+def ptxas_report(source: str) -> dict[str, str]:
+    """ptxas's spill and register lines of each kernel of ``source``'s
+    build, by mangled name."""
+    from repro_torch.kernels import build
+
+    props, fn = {}, None
+    log = build.library_path(source).with_suffix(".log")
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and ("spill" in line or "registers" in line):
+            props.setdefault(fn, []).append(line.split(":", 1)[-1].strip()
+                                            if "registers" in line
+                                            else line.strip())
+    return {f: "; ".join(v) for f, v in props.items()}
+
+
+def spills(line: str) -> bool:
+    return re.search(r"[1-9]\d* bytes spill", line) is not None
+
+
+def check_sums_build() -> None:
+    """The GEMM regime's sums kernels as built: ptxas's register and
+    spill line of each (any spill fails: the ring of three blocks an SM
+    caps a thread at 80 registers)."""
+    report = ptxas_report("snn_infer")
+    for symbol in SUMS_SYMBOLS:
+        lines = [line for f, line in report.items() if symbol in f]
+        print(f"ptxas {symbol}: {lines}", flush=True)
+        if len(lines) != 1:
+            fail(f"ptxas reported {len(lines)} builds of {symbol}")
+        if spills(lines[0]):
+            fail(f"{symbol} spills registers")
+
+
 def check_flash_build() -> None:
     """Both flash kernels as built, at every head dim: ptxas's register
     and spill line (any spill fails), and their tensor-core instructions
@@ -1472,16 +1549,7 @@ def check_flash_build() -> None:
     from repro_torch.kernels import build
 
     lib = build.library_path("flash_attn")
-    symbols = {sym for _, _, _, sym in FLASH_DTYPES}
-    props, fn = {}, None
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-        elif fn and any(s in fn for s in symbols) and (
-                "spill" in line or "registers" in line):
-            props.setdefault(fn, []).append(line.split(":", 1)[-1].strip()
-                                            if "registers" in line
-                                            else line.strip())
+    report = ptxas_report("flash_attn")
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
@@ -1496,17 +1564,16 @@ def check_flash_build() -> None:
                 if re.search(rf"\b{op}\b", line):
                     ops[fn, op] += 1
     for _, dname, _, symbol in FLASH_DTYPES:
-        dims = {int(re.search(r"ILi(\d+)E", f).group(1)): "; ".join(v)
-                for f, v in props.items() if symbol in f}
+        dims = {int(re.search(r"ILi(\d+)E", f).group(1)): line
+                for f, line in report.items() if symbol in f}
         for d in FLASH_HEAD_DIMS:
             print(f"ptxas {symbol}<{d}>: {dims.get(d)}", flush=True)
         if sorted(dims) != list(FLASH_HEAD_DIMS):
             fail(f"ptxas reported {symbol} at head dims {sorted(dims)}, "
                  f"expected {FLASH_HEAD_DIMS}")
-        spills = [d for d, line in dims.items()
-                  if re.search(r"[1-9]\d* bytes spill", line)]
-        if spills:
-            fail(f"{symbol} spills registers at head dims {spills}")
+        spilled = [d for d, line in dims.items() if spills(line)]
+        if spilled:
+            fail(f"{symbol} spills registers at head dims {spilled}")
         op = FLASH_TENSOR_OP[dname]
         per_dim = {d: sum(c for (f, o), c in ops.items()
                           if o == op and f"{symbol}ILi{d}E" in f)
@@ -1808,6 +1875,7 @@ def main() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {source}: {line.strip()}", flush=True)
+    check_sums_build()
 
     # phase 3: kernels against their plain versions
     rates = Rates.of_card()
@@ -1855,7 +1923,7 @@ def main() -> None:
              train_launches),
             ("fused_snn_window_encode", TRAIN_SOURCE, "train-active", 793,
              train_launches)):
-        main_t, large = timings[(kname, shape)], timings[(kname, "large")]
+        main_t = timings[(kname, shape)]
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": f"{PALLAS}:{line}",
@@ -1866,17 +1934,11 @@ def main() -> None:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": None, "shape": shape,
             "call_ms": main_t["call_ms"],
-            "large": {k: large[k] for k in ("ms", "call_ms", "plain_ms",
-                                            "bound_ms", "bound_by")}}
-        if (kname, "canary") in timings and shape != "canary":
-            entry["canary"] = {k: timings[(kname, "canary")][k]
-                               for k in ("ms", "call_ms", "plain_ms",
+            # every other shape of phase 3
+            **{other: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by")}
-        if (kname, "train-active") in timings and shape != "train-active":
-            entry["train-active"] = {
-                k: timings[(kname, "train-active")][k]
-                for k in ("ms", "call_ms", "plain_ms", "bound_ms",
-                          "bound_by")}
+               for (k, other), t in timings.items()
+               if k == kname and other != shape}}
         if launches is serve_launches:
             entry["train_launches"] = train_launches[kname]
         if kname == "train_window_batch_encode":

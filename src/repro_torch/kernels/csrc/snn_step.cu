@@ -8,9 +8,9 @@
 //   lif_kernel            <- lif_step (_lif_kernel), NU, snn.nu:
 //                            v += count; fire iff v >= threshold; a fired
 //                            neuron resets to 0, else v = max(v - leak, 0).
-//   stdp_kernel           <- stdp_update (_stdp_kernel), SU, snn.su: on
-//                            each fired row, two LFSR steps s1, s2 per
-//                            word; LTP w |= pre when (s1 & 0x3FF) <=
+//   stdp_short_kernel,    <- stdp_update (_stdp_kernel), SU, snn.su: on
+//   stdp_long_kernel,        each fired row, two LFSR steps s1, s2 per
+//   stdp_wide_kernel         word; LTP w |= pre when (s1 & 0x3FF) <=
 //                            ltp_prob (u32 compare); with pc the popcount
 //                            of the LTP'd row, LTD w &= pre when
 //                            (s2 & 0x3FF) <= clip((pc - w_exp) * gain *
@@ -42,7 +42,25 @@
 // unfired row is copied through.  `train = false` compiles the SU out
 // and writes only v' and the raster, so the bank and LFSR are returned
 // as they came.  The LIF kernel is one thread per (stream, neuron).  No
-// kernel writes an input, and none needs shared memory or a barrier.
+// kernel writes an input, and none but stdp_long_kernel needs shared
+// memory or a barrier.
+//
+// The SU alone (stdp_update) reads each word of a row's weights and LFSR
+// lanes once and writes it once, where snn::stdp_row (which the fused
+// step's long rows and the window kernels share) reads a fired row a
+// second time for the LTD after the row popcount: 36 bytes a word where
+// 16 suffice, the second pass waiting on the first pass's stores.  Rows
+// of up to 128 words (the paper's 25) take a warp each and sit in
+// registers, every load issued before the work that depends on it
+// (stdp_short_kernel).  Longer rows (65,536 inputs: 2,048 words) take a
+// block of 256 threads each, 16-byte loads and stores where the row
+// allows them: pass 1 reads each word once, applies the LTP, steps its
+// LFSR lane (written out at once: s2 is final) and stashes the LTP'd word
+// and s2 in shared memory; the row popcount is a block sum; pass 2 applies
+// the LTD from the stash and writes the weights (stdp_long_kernel).  An
+// unfired row is copied through in pass 1.  Rows wider than a block's
+// shared memory holds (8 bytes a word) keep the two-pass form, one warp a
+// row (stdp_wide_kernel).
 //
 // The fused step is the step path's one launch per cycle, 72 a window,
 // so its launch latency is the cost.  The engine records a window's
@@ -81,7 +99,7 @@ struct Step {
   const int32_t* count;         // lif_kernel: the SPU's counts
   const int32_t* teach;         // fused: null means no teacher current
   const int32_t* ltp_prob;      // SU: [B]
-  const uint8_t* fired_in;      // stdp_kernel: the NU's fired mask
+  const uint8_t* fired_in;      // SU kernels: the NU's fired mask
   uint32_t* w_out;              // SU
   uint32_t* lfsr_out;           // SU
   int32_t* v_out;               // NU
@@ -167,7 +185,155 @@ lif_kernel(Step o, int total) {
   o.fired[i] = fired;
 }
 
-__global__ void __launch_bounds__(kThreads) stdp_kernel(Step o) {
+// snn::stdp_row on the row's words held in registers, kHeld a lane
+// (word lane + 32 j in slot j; words past the row are 0 and add nothing
+// to the row popcount), by the warp that owns the fired row.
+__device__ __forceinline__ void stdp_held(uint32_t (&w_r)[kHeld],
+                                          uint32_t (&st_r)[kHeld],
+                                          const uint32_t (&pre_r)[kHeld],
+                                          uint32_t ltp_prob, const Step& o) {
+  int pc = 0;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    if (((st_r[j] >> 1) & 0x3FFu) <= ltp_prob) w_r[j] |= pre_r[j];
+    st_r[j] = snn::lfsr_step2(st_r[j]);
+    pc += __popc(w_r[j]);
+  }
+  const int32_t excess = snn::ltd_excess(snn::warp_add(pc), o.w_exp, o.gain);
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j)
+    if (snn::ltd_hit(st_r[j] & 0x3FFu, excess, o.n_syn)) w_r[j] &= pre_r[j];
+}
+
+// SU on rows of W <= 32 * kHeld words: one warp a row, in registers.
+__global__ void __launch_bounds__(kThreads) stdp_short_kernel(Step o) {
+  Row row;
+  if (!warp_row(o, &row)) return;   // whole warps leave together
+  const int lane = threadIdx.x % 32;
+  const int W = o.W;
+  const uint32_t* w = o.weights + row.bank * W;
+  const uint32_t* st = o.lfsr + row.bank * W;
+  const uint32_t* pre = o.pre + static_cast<size_t>(blockIdx.y) * W;
+  uint32_t w_r[kHeld], st_r[kHeld], pre_r[kHeld];
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int k = lane + 32 * j;
+    w_r[j] = k < W ? w[k] : 0;
+    st_r[j] = k < W ? st[k] : 0;
+    pre_r[j] = k < W ? pre[k] : 0;
+  }
+  const bool fired = o.fired_in[row.nrn] != 0;   // the same on every lane
+  const uint32_t ltp_prob = static_cast<uint32_t>(o.ltp_prob[blockIdx.y]);
+  if (fired) stdp_held(w_r, st_r, pre_r, ltp_prob, o);
+  uint32_t* w_out = o.w_out + row.nrn * W;
+  uint32_t* st_out = o.lfsr_out + row.nrn * W;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int k = lane + 32 * j;
+    if (k < W) {
+      w_out[k] = w_r[j];
+      st_out[k] = st_r[j];
+    }
+  }
+}
+
+constexpr int kLongThreads = 256;
+
+// Words 4q .. 4q + 3 of a row of W words (0 past its end): one 16-byte
+// access where `vec` (W % 4 == 0, 16-byte aligned row), else four.
+__device__ __forceinline__ uint4 load4(const uint32_t* row, int q, int W,
+                                       bool vec) {
+  if (vec) return reinterpret_cast<const uint4*>(row)[q];
+  const int k = 4 * q;
+  return make_uint4(k < W ? row[k] : 0u, k + 1 < W ? row[k + 1] : 0u,
+                    k + 2 < W ? row[k + 2] : 0u, k + 3 < W ? row[k + 3] : 0u);
+}
+
+__device__ __forceinline__ void store4(uint32_t* row, int q, uint4 x, int W,
+                                       bool vec) {
+  if (vec) {
+    reinterpret_cast<uint4*>(row)[q] = x;
+    return;
+  }
+  const int k = 4 * q;
+  if (k < W) row[k] = x.x;
+  if (k + 1 < W) row[k + 1] = x.y;
+  if (k + 2 < W) row[k + 2] = x.z;
+  if (k + 3 < W) row[k + 3] = x.w;
+}
+
+__device__ __forceinline__ uint32_t ltp(uint32_t w, uint32_t s, uint32_t p,
+                                        uint32_t ltp_prob) {
+  return ((s >> 1) & 0x3FFu) <= ltp_prob ? w | p : w;
+}
+
+__device__ __forceinline__ uint32_t ltd(uint32_t w, uint32_t s2, uint32_t p,
+                                        uint32_t prob) {
+  return (s2 & 0x3FFu) <= prob ? w & p : w;
+}
+
+// SU on long rows: one block of kLongThreads a row, grid (n, B).  The
+// dynamic shared memory holds the row's stash: (W + 3) / 4 vectors of
+// LTP'd words, then as many of LFSR lanes s2.
+__global__ void __launch_bounds__(kLongThreads)
+stdp_long_kernel(Step o, int vec) {
+  extern __shared__ __align__(16) uint4 stash[];
+  __shared__ int part[kLongThreads / 32];
+  const int W = o.W;
+  const int nvec = (W + 3) / 4;
+  const size_t b = blockIdx.y;
+  const size_t nrn = b * o.n + blockIdx.x;
+  const size_t bank = (o.shared ? 0 : b * o.n) + blockIdx.x;
+  const uint32_t* w = o.weights + bank * W;
+  const uint32_t* st = o.lfsr + bank * W;
+  const uint32_t* pre = o.pre + b * W;
+  uint32_t* w_out = o.w_out + nrn * W;
+  uint32_t* st_out = o.lfsr_out + nrn * W;
+  const bool fired = o.fired_in[nrn] != 0;       // the same for the block
+  const uint32_t ltp_prob = static_cast<uint32_t>(o.ltp_prob[b]);
+  int pc = 0;
+  for (int q = threadIdx.x; q < nvec; q += kLongThreads) {
+    uint4 wv = load4(w, q, W, vec);
+    uint4 sv = load4(st, q, W, vec);
+    const uint4 pv = load4(pre, q, W, vec);
+    if (fired) {
+      wv = make_uint4(ltp(wv.x, sv.x, pv.x, ltp_prob),
+                      ltp(wv.y, sv.y, pv.y, ltp_prob),
+                      ltp(wv.z, sv.z, pv.z, ltp_prob),
+                      ltp(wv.w, sv.w, pv.w, ltp_prob));
+      sv = make_uint4(snn::lfsr_step2(sv.x), snn::lfsr_step2(sv.y),
+                      snn::lfsr_step2(sv.z), snn::lfsr_step2(sv.w));
+      pc += __popc(wv.x) + __popc(wv.y) + __popc(wv.z) + __popc(wv.w);
+      stash[q] = wv;
+      stash[nvec + q] = sv;
+    } else {
+      store4(w_out, q, wv, W, vec);
+    }
+    store4(st_out, q, sv, W, vec);
+  }
+  if (!fired) return;
+  pc = snn::warp_add(pc);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = pc;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int i = 0; i < kLongThreads / 32; ++i) total += part[i];
+  const uint32_t prob =
+      snn::ltd_prob(snn::ltd_excess(total, o.w_exp, o.gain), o.n_syn);
+  for (int q = threadIdx.x; q < nvec; q += kLongThreads) {
+    const uint4 wv = stash[q];    // this thread's own words: no barrier
+    const uint4 sv = stash[nvec + q];
+    const uint4 pv = load4(pre, q, W, vec);
+    store4(w_out, q,
+           make_uint4(ltd(wv.x, sv.x, pv.x, prob), ltd(wv.y, sv.y, pv.y, prob),
+                      ltd(wv.z, sv.z, pv.z, prob), ltd(wv.w, sv.w, pv.w, prob)),
+           W, vec);
+  }
+}
+
+// SU on rows too wide for stdp_long_kernel's stash: one warp a row, the
+// two-pass snn::stdp_row.
+__global__ void __launch_bounds__(kThreads) stdp_wide_kernel(Step o) {
   Row row;
   if (!warp_row(o, &row)) return;
   su_row(o, row, o.fired_in[row.nrn] != 0, threadIdx.x % 32);
@@ -349,7 +515,22 @@ int snn_stdp_update(const void* weights, const void* pre, const void* fired,
   Step o = bank(weights, pre, n, W, shared);
   o.fired_in = static_cast<const uint8_t*>(fired);
   set_su(&o, lfsr, ltp_prob, w_out, lfsr_out, w_exp, gain, n_syn);
-  return launch_rows(stdp_kernel, o, B, stream);
+  if (W <= 32 * kHeld) return launch_rows(stdp_short_kernel, o, B, stream);
+  size_t limit = 0;
+  cudaError_t err = snn::block_smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t stash = static_cast<size_t>((W + 3) / 4) * 32;
+  if (stash + 1024 > limit) return launch_rows(stdp_wide_kernel, o, B, stream);
+  err = snn::allow_smem(stdp_long_kernel, stash);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = W % 4 == 0 && aligned(weights) && aligned(lfsr) &&
+                  aligned(pre) && aligned(w_out) && aligned(lfsr_out);
+  stdp_long_kernel<<<dim3(n, B), kLongThreads, stash,
+                     static_cast<cudaStream_t>(stream)>>>(o, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // snn.step: reads weights (and, if train, lfsr) [B, n, W] ([n, W] if

@@ -71,9 +71,7 @@ _ROW_TOO_WIDE = -1        # the launchers' code for a row that does not fit
 _SIGNATURES = {
     "snn_infer": (("snn_infer_window_batch_encode", "pppppp iiiiiii p", "i"),
                   ("snn_infer_window_batch", "ppp iiiiii p", "i"),
-                  ("snn_infer_encode_plan", "iiii p", "i"),
-                  ("snn_tile_rows", "ii", "i"),
-                  ("snn_smem_bytes", "ii", "l")),
+                  ("snn_infer_plan", "iiiii p", "i")),
     "snn_train": (("snn_train_window_batch", "pppppppppp iiiiiiiii p", "i"),
                   ("snn_train_window_batch_encode",
                    "ppppppppppp iiiiiiiiii p", "i"),
@@ -120,50 +118,41 @@ def load_kernels() -> None:
     _libraries()
 
 
-def tile_rows(n: int, words: int) -> int:
-    """Neurons per thread block the pre-packed serving kernel
-    (:func:`infer_window_batch`) takes for an ``n``-neuron,
-    ``words``-wide bank on the current card (0: one row does not fit its
-    shared memory).  The layout lives in ``csrc/snn_infer.cu``."""
-    return _libraries()["snn_infer"].snn_tile_rows(n, words)
-
-
-def smem_bytes(rows: int, words: int) -> int:
-    """Shared-memory bytes of one pre-packed block holding ``rows``."""
-    return _libraries()["snn_infer"].snn_smem_bytes(rows, words)
-
-
 class EncodePlan(NamedTuple):
-    """How :func:`infer_window_batch_encode` runs a shape on a card."""
+    """How a serving kernel runs a shape on a card."""
     regime: str          # "window" (one cluster a sample) or "gemm"
-    cluster: int         # blocks a sample in the window regime
-    smem_bytes: int      # shared bytes a block in the window regime
+    cluster: int         # blocks a cluster: a sample's (window), or a
+                         # (64-neuron tile, sample)'s (gemm)
+    smem_bytes: int      # shared bytes a block
 
 
 @functools.cache
-def _encode_plan(dev: int, b: int, n: int, words: int,
-                 n_steps: int) -> EncodePlan:
+def _encode_plan(dev: int, b: int, n: int, words: int, n_steps: int,
+                 encode: bool) -> EncodePlan:
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
-        err = _libraries()["snn_infer"].snn_infer_encode_plan(
-            b, n, words, n_steps, ctypes.addressof(out))
+        err = _libraries()["snn_infer"].snn_infer_plan(
+            b, n, words, n_steps, int(encode), ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"infer_window_batch_encode: planning failed "
-                           f"({err})")
+        raise RuntimeError(f"serving kernel: planning failed ({err})")
     return EncodePlan(("window", "gemm")[out[0]], out[1], out[2])
 
 
-def encode_plan(b: int, n: int, words: int, n_steps: int,
-                device=None) -> EncodePlan:
-    """The regime the encode serving kernel picks for ``b`` samples of an
+def encode_plan(b: int, n: int, words: int, n_steps: int, device=None, *,
+                encode: bool = True) -> EncodePlan:
+    """The regime a serving kernel picks for ``b`` samples of an
     ``n``-neuron, ``words``-wide bank over ``n_steps`` cycles on the card
-    (the current one, or ``device``): the window regime where a sample's
-    weights, sums and a share of its window fit a block's shared memory,
-    else the GEMM regime (a draw launch into a scratch window, then the
-    sums and the LIF scan).  The choice lives in ``csrc/snn_infer.cu``."""
+    (the current one, or ``device``): :func:`infer_window_batch_encode`'s,
+    or with ``encode=False`` :func:`infer_window_batch`'s.  The window
+    regime where a sample's weights, sums and a share of its window fit a
+    block's shared memory (a cluster of blocks a sample), else the GEMM
+    regime: a popcount product and the LIF scan, by clusters of blocks
+    that split the words, after a draw launch into a scratch window for
+    the encode op; the pre-packed op reads its spikes where they are.  The
+    choice lives in ``csrc/snn_infer.cu``."""
     dev = torch.device("cuda" if device is None else device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _encode_plan(idx, b, n, words, n_steps)
+    return _encode_plan(idx, b, n, words, n_steps, encode)
 
 
 def train_tile_rows(n: int, words: int, encode: bool, learn: bool) -> int:
@@ -328,7 +317,9 @@ def infer_window_batch(weights: torch.Tensor, spike_trains: torch.Tensor,
     """Serving path on pre-packed windows: spike counts int32[B, n].
 
     weights int32[n, w], spike_trains int32[B, T, w] (u32 bit patterns);
-    weights frozen, membrane reset per sample.
+    weights frozen, membrane reset per sample, every sample over all T
+    cycles (any threshold).  On a card the kernel runs in the regime
+    ``encode_plan(..., encode=False)`` names; neither regime allocates.
     """
     _check_backend(backend)
     if backend == "ref" or weights.device.type == "cpu":
@@ -344,14 +335,13 @@ def infer_window_batch(weights: torch.Tensor, spike_trains: torch.Tensor,
                          f"weights {w}")
     _check_grid(what, b)
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
-    if b == 0 or n == 0:
+    if b == 0 or n == 0 or t_steps == 0:
         return counts.zero_()
     _launch(what, "snn_infer", "snn_infer_window_batch", dev,
             weights.data_ptr(), spike_trains.data_ptr(), counts.data_ptr(),
             b, n, w, t_steps, threshold, leak)
     infer_window_batch.launches += 1
     return counts
-
 
 
 # --- training and read-only windows (csrc/snn_train.cu) --------------------

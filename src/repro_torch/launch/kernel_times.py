@@ -9,16 +9,18 @@ checkout and this one, in turns within one call, compares the two.  It
 uses only the ops both sides have; the stream form is timed where it
 exists.  Shapes follow ``chip_smoke.py``: phase 3's trainer digits at
 784-40 ("train-parallel": B = 4 streams of 10 neurons, T = 72; the
-read-only windows one stream; the fused step one cycle of the four
-streams; the stream form 8 samples shared by the four) and the synthetic
-"large" (65,536 inputs, 1,000 neurons, the same B); phase 3's serving
-shapes for both serving kernels ("paper": B = 32, 784-40, T = 72, ragged
-lengths; "canary": T = 8; "large": B = 16, 65,536 inputs, 1,000 neurons);
-and phase 8a's six flash-attention shapes in float32 and bfloat16.  Each
-time is the profiler's device time per call of the kernels whose name
-holds the op's symbol over ``--reps`` calls; every output is first held
-equal to the plain version (flash: within the dtype's tolerance).
-Prints one JSON line.
+read-only windows one stream; the four step kernels one cycle of the
+four streams; the stream form 8 samples shared by the four) and the
+synthetic "large" (65,536 inputs, 1,000 neurons, the same B; the SPU, NU
+and SU one stream, as phase 3 runs them); phase 3's serving shapes for both serving kernels
+("paper": B = 32, 784-40, T = 72, ragged lengths; "canary": T = 8;
+"large": B = 16, 65,536 inputs, 1,000 neurons); and phase 8a's six
+flash-attention shapes in float32 and bfloat16.  Each time is the
+profiler's device time per call of the kernels whose name holds one of
+the op's symbols (a kernel renamed between two checkouts is named by
+both) over ``--reps`` calls; every output is first held equal to the
+plain version (flash: within the dtype's tolerance).  Prints one JSON
+line.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ import torch
 _PROFILER_TRIES = 5
 
 
-def _device_ms(fn, symbol: str, reps: int) -> float:
+def _device_ms(fn, symbols, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
+
+    symbols = (symbols,) if isinstance(symbols, str) else symbols
 
     fn()
     torch.cuda.synchronize()
@@ -47,10 +51,11 @@ def _device_ms(fn, symbol: str, reps: int) -> float:
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
-                if symbol in e.key and e.device_time_total > 0]
+                if any(s in e.key for s in symbols)
+                and e.device_time_total > 0]
         if rows:     # each kernel of a call (the encode op may launch two)
             return sum(e.device_time_total / e.count for e in rows) / 1e3
-    raise RuntimeError(f"the profiler recorded no {symbol} in "
+    raise RuntimeError(f"the profiler recorded no {symbols} in "
                        f"{_PROFILER_TRIES} sessions")
 
 
@@ -141,7 +146,8 @@ def _serving_times(ops, dev, reps: int) -> dict:
                 lambda be: ops.infer_window_batch_encode(
                     w, x, seeds, n_steps=t, t_total=tt, backend=be, **kw)),
             "infer_window_batch": (
-                "infer_window_kernel",
+                # before and after the kernel took the encode kernel's design
+                ("infer_window_kernel", "infer_window_pre_"),
                 lambda be: ops.infer_window_batch(w, wins, backend=be, **kw)),
         }
         for kname, (symbol, call) in calls.items():
@@ -223,6 +229,31 @@ def main(argv=None) -> None:
                     o["weights"], o["wins"][:, 0].contiguous(), o["v_step"],
                     o["lfsr"], tch, ltp_prob=o["ltp"], backend=be, **kw)),
         }
+        # the SPU, NU and SU of one cycle, as phase 3's step shapes run
+        # them: the four streams, or stream 0 at large
+        one = (lambda t: t[0]) if shape == "large" else (lambda t: t)
+        pre, w1, l1, v1 = (one(t).contiguous() for t in (
+            o["wins"][:, 0], o["weights"], o["lfsr"], o["v_step"]))
+        lp = o["ltp"][:1] if shape == "large" else o["ltp"]
+        count = ops.spike_process(pre, w1, backend="ref") + one(tch)
+        fired = ops.lif_step(v1, count, kw["threshold"], kw["leak"],
+                             backend="ref")[1]
+        su = {k: kw[k] for k in ("w_exp", "gain", "n_syn")}
+        calls.update({
+            "spike_process": (
+                "spike_process_kernel",
+                lambda be: ops.spike_process(pre, w1, backend=be)),
+            "lif_step": (
+                "lif_kernel",
+                lambda be: ops.lif_step(v1, count, kw["threshold"],
+                                        kw["leak"], backend=be)),
+            # stdp_kernel before the SU's redesign; stdp_short_kernel,
+            # stdp_long_kernel or stdp_wide_kernel after it
+            "stdp_update": (
+                "stdp_",
+                lambda be: ops.stdp_update(w1, pre, fired, l1, ltp_prob=lp,
+                                           backend=be, **su)),
+        })
         if hasattr(ops, "train_stream_batch_encode"):
             calls["train_stream_batch_encode"] = (
                 "train_window_enc_kernel",

@@ -81,27 +81,52 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,words", [(40, 25), (1000, 2048), (7, 1)])
-def test_tile_rows_fit_shared_memory(cuda, n, words):
-    rows = ops.tile_rows(n, words)
-    props = torch.cuda.get_device_properties(cuda)
-    limit = props.shared_memory_per_block_optin
-    assert 1 <= rows <= n
-    assert ops.smem_bytes(rows, words) <= limit
+@pytest.mark.parametrize("b,n,words,t,regime", [
+    (32, 40, 25, 72, "window"),     # the paper's: SMs // 32 blocks a sample
+    (32, 40, 25, 8, "window"),      # the canary's
+    (1, 40, 25, 72, "window"),      # 8 blocks a sample
+    (16, 1000, 2048, 72, "gemm"),   # 256 (tile, sample)s: 8 blocks each
+    (4, 4, 32768, 8, "gemm"),       # 8 blocks each
+    (5, 1000, 25, 75, "gemm"),      # one 32-word chunk: no split
+])
+def test_prepacked_plan_names_each_regime(cuda, b, n, words, t, regime):
+    """The pre-packed kernel's plan: the window regime where a sample's
+    weights, sums and share of its window fit a block (without the encode
+    kernel's 32-bytes-a-word intensity stage), else the GEMM regime, by
+    clusters that split the words: the least power of two giving 8
+    blocks an SM, at most 8 and at most the 32-word chunks."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    plan = ops.encode_plan(b, n, words, t, encode=False)
+    enc = ops.encode_plan(b, n, words, t)
+    assert plan.regime == regime and plan.smem_bytes <= limit
+    if regime == "window":
+        assert plan.cluster == min(8, max(sms // b, 1), t)
+        assert enc.regime == "window" and enc.cluster == plan.cluster
+        assert enc.smem_bytes - plan.smem_bytes == 32 * words
+    else:
+        chunks, g = -(-words // 32), 1
+        while g < 8 and g < chunks and b * -(-n // 64) * g < 8 * sms:
+            g *= 2
+        assert plan.cluster == enc.cluster == min(g, chunks)
 
 
 @pytest.mark.gpu
-def test_tile_rows_rejects_rows_wider_than_shared_memory(cuda):
-    """The pre-packed kernel stages whole rows: one of 32,768 words does
-    not fit.  The encode kernel's GEMM regime stages word chunks, so it
-    takes rows that wide (8,192 words here) and equals its plain version."""
-    assert ops.tile_rows(4, 32768) == 0
-    w = torch.zeros((4, 32768), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.infer_window_batch(w, torch.zeros((1, 2, 32768), dtype=torch.int32,
-                                              device=cuda),
-                               threshold=1, leak=0)
+def test_prepacked_32768_word_bank_is_served(cuda):
+    """A 32,768-word bank (a row of 128 KiB: the old pre-packed kernel
+    refused it) runs in the GEMM regime and equals its plain version, at
+    threshold 0 too; so does the encode kernel's GEMM regime (8,192
+    words)."""
     rng = np.random.default_rng(4)
+    w = as_words(rng.integers(0, 2**32, (4, 32768), dtype=np.uint32), cuda)
+    wins = as_words(_sparse_windows(rng, 2, 8, 32768), cuda)
+    assert ops.encode_plan(2, 4, 32768, 8, encode=False).regime == "gemm"
+    for thr in (0, 1, 32768 * 4):
+        got = ops.infer_window_batch(w, wins, threshold=thr, leak=3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.infer_window_batch(
+            w, wins, threshold=thr, leak=3, backend="ref"))
+    assert (got > 0).any() and (got < 8).any()
     w = as_words(rng.integers(0, 2**32, (4, 8192), dtype=np.uint32), cuda)
     x = torch.from_numpy(rng.integers(0, 256, (1, 8192 * 32),
                                       dtype=np.uint8)).to(cuda)
@@ -111,6 +136,30 @@ def test_tile_rows_rejects_rows_wider_than_shared_memory(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, ops.infer_window_batch_encode(w, x, 3,
                                                           backend="ref", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [0, 1, 75])
+def test_cuda_prepacked_runs_every_cycle(cuda, t):
+    """The pre-packed kernel runs all T cycles of every sample (T = 0
+    launches nothing and gives zeros), unaligned operands included (the
+    GEMM regime then copies 4 bytes at a time)."""
+    rng = np.random.default_rng(t)
+    for n, words in ((40, 25), (70, 2048)):
+        w = as_words(rng.integers(0, 2**32, (n, words), dtype=np.uint32),
+                     cuda)
+        flat = as_words(_sparse_windows(rng, 1, 3 * t * words + 1, 1)
+                        .reshape(-1), cuda)
+        wins = flat[1:].view(3, t, words)       # 4 bytes past 16-aligned
+        launches = ops.infer_window_batch.launches
+        for thr in (0, 1, 8 * words):
+            got = ops.infer_window_batch(w, wins, threshold=thr, leak=3)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ops.infer_window_batch(
+                w, wins, threshold=thr, leak=3, backend="ref"))
+        assert ops.infer_window_batch.launches == launches + 3 * (t > 0)
+        if t == 0:
+            assert not got.any()
 
 
 @pytest.mark.gpu
@@ -150,6 +199,12 @@ def test_cuda_encode_regimes_equal_plain_and_prepacked(cuda, b, n_in, n, t,
         wins = encode_windows_host(sd, x, t, bank.shape[1], tt)
         assert torch.equal(got, ops.infer_window_batch(w, wins, threshold=thr,
                                                        leak=3))
+    # threshold 0 on the pre-packed op: the zero-masked tail fires too
+    got = ops.infer_window_batch(w, wins, threshold=0, leak=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.infer_window_batch(w, wins, threshold=0,
+                                                   leak=3, backend="ref"))
+    assert (got == t).all()
 
 
 def _serving(cuda, on_launch):
@@ -498,6 +553,53 @@ def test_cuda_step_kernels_equal_plain_versions(cuda, lead, shared, n, n_in):
     assert idle[0] is weights and idle[3] is lanes
     for a, x in zip(ins, (weights, pre, v, lanes, teach)):
         assert torch.equal(a, x)             # inputs never written
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fired", ["all", "none", "mixed"])
+@pytest.mark.parametrize("words,offset", [
+    (1, 0), (25, 0), (128, 0),          # a warp a row, in registers
+    (129, 0), (2048, 0), (4096, 0),     # a block a row (16-byte copies)
+    (2048, 1),                          # ... unaligned: 4-byte copies
+    (32768, 0),                         # too wide for the stash: two passes
+])
+@pytest.mark.parametrize("lead,shared", [((), False), ((4,), False),
+                                         ((4,), True)])
+def test_cuda_stdp_update_paths_equal_plain(cuda, lead, shared, words,
+                                            offset, fired):
+    rng = np.random.default_rng(words + offset + len(lead))
+    n = 5
+    bank_lead = () if shared else lead
+
+    def words_at(shape, lanes=False):     # ``offset`` words past aligned
+        x = (rng.integers(1, 2**16, shape).astype(np.uint32) if lanes else
+             rng.integers(0, 2**32, shape, dtype=np.uint32))
+        flat = as_words(np.concatenate([np.zeros(offset, np.uint32),
+                                        x.reshape(-1)]), cuda)
+        return flat[offset:].view(shape)
+
+    weights = words_at(bank_lead + (n, words))
+    lanes = words_at(bank_lead + (n, words), lanes=True)
+    pre = words_at(lead + (words,))
+    post = (torch.ones if fired == "all" else torch.zeros)(
+        lead + (n,), dtype=torch.bool, device=cuda)
+    if fired == "mixed":
+        post[..., ::2] = True
+    b = lead[0] if lead else 1
+    ltp = torch.tensor([16, -1, 0, 1023][:b], dtype=torch.int32,
+                       device=cuda)
+    su = dict(w_exp=16 * words, gain=4, n_syn=32 * words - 5, ltp_prob=ltp)
+    ins = [x.clone() for x in (weights, lanes, pre, post)]
+    launches = ops.stdp_update.launches
+    got = ops.stdp_update(weights, pre, post, lanes, **su)
+    torch.cuda.synchronize()
+    assert ops.stdp_update.launches == launches + 1
+    _equal_all(got, ops.stdp_update(weights, pre, post, lanes,
+                                    backend="ref", **su))
+    for a, x in zip(ins, (weights, lanes, pre, post)):
+        assert torch.equal(a, x)             # inputs never written
+    if fired != "none":
+        assert not torch.equal(got[1], lanes.expand(got[1].shape))
 
 
 @pytest.mark.gpu

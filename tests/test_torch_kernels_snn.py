@@ -204,3 +204,114 @@ def test_encode_kernel_order_equals_pallas_interp():
         backend="interp")
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.sum() > 0
+
+
+# --- the pre-packed kernel's order of work, modelled in numpy ----------------
+#
+# ``infer_window_pre_kernel`` (window regime) and
+# ``infer_window_pre_sums_kernel`` (GEMM regime) take every synaptic sum
+# first and scan the LIF over all T cycles after, as the encode kernel
+# does.  The window regime splits a sample's cycles over the C blocks of
+# its cluster; the GEMM regime splits the words over the G blocks of a
+# (64-neuron tile, sample)'s cluster, in whole 32-word chunks, and adds
+# their partial sums one pass of 72 cycles at a time, carrying v and the
+# count from pass to pass.  The models below do the same, in numpy, from
+# one table of per-word popcounts.
+
+_CHUNK, _PASS, _TILE = 32, 72, 64
+
+
+def _word_popcounts(bank, wins):
+    """popcount(wins[b, t, k] & bank[i, k]) as int64[B, T, n, w]."""
+    x = wins[:, :, None, :] & bank[None, None]
+    return np.unpackbits(x.view(np.uint8).reshape(x.shape + (4,)),
+                         axis=-1).sum(-1, dtype=np.int64)
+
+
+def _lif_scan(c, v, cnt, threshold, leak):
+    """The LIF over the cycles of c [T, n], from (v, cnt)."""
+    for ct in c:
+        v = v + ct
+        fired = v >= threshold
+        v = np.where(fired, 0, np.maximum(v - leak, 0))
+        cnt = cnt + fired
+    return v, cnt
+
+
+def prepacked_window_model(bank, wins, threshold, leak, cluster):
+    """counts int32[B, n]: rank r of a sample's cluster sums cycles
+    [r per, (r + 1) per), per = ceil(T / C), for every neuron into the
+    leader's [T, n] table; the leader scans all T cycles."""
+    pc = _word_popcounts(bank, wins)
+    n_b, t = wins.shape[:2]
+    n = bank.shape[0]
+    per = -(-t // cluster)
+    counts = np.zeros((n_b, n), np.int32)
+    for b in range(n_b):
+        c = np.full((t, n), -1, np.int64)
+        for rank in range(cluster):
+            lo = min(rank * per, t)
+            hi = min(lo + per, t)
+            c[lo:hi] = pc[b, lo:hi].sum(-1)
+        assert (c >= 0).all()                  # every cycle summed once
+        counts[b] = _lif_scan(c, np.zeros(n, np.int64),
+                              np.zeros(n, np.int64), threshold, leak)[1]
+    return counts
+
+
+def prepacked_gemm_model(bank, wins, threshold, leak, split):
+    """counts int32[B, n]: per (64-neuron tile, sample), rank g of the
+    ``split`` ranks sums words [g slice, (g + 1) slice) (slice whole
+    32-word chunks) chunk by chunk; each pass of 72 cycles adds the ranks'
+    partial sums, then scans them."""
+    pc = _word_popcounts(bank, wins)
+    n_b, t, w = wins.shape
+    n = bank.shape[0]
+    slice_ = -(-(-(-w // _CHUNK)) // split) * _CHUNK
+    counts = np.zeros((n_b, n), np.int32)
+    for b in range(n_b):
+        for row0 in range(0, n, _TILE):
+            rows = slice(row0, min(row0 + _TILE, n))
+            v = np.zeros(rows.stop - row0, np.int64)
+            cnt = np.zeros_like(v)
+            for t0 in range(0, t, _PASS):
+                cyc = slice(t0, min(t0 + _PASS, t))
+                c = 0
+                for rank in range(split):
+                    k_hi = min(rank * slice_ + slice_, w)
+                    for kc in range(rank * slice_, k_hi, _CHUNK):
+                        c = c + pc[b, cyc, rows, kc:min(kc + _CHUNK, k_hi)
+                                   ].sum(-1)
+                v, cnt = _lif_scan(c, v, cnt, threshold, leak)
+            counts[b, rows] = cnt
+    return counts
+
+
+@pytest.mark.parametrize("n", [1, 37, 40, 130])
+@pytest.mark.parametrize("t", [0, 1, 8, 72, 75])
+@pytest.mark.parametrize("threshold", [0, 1, 400])
+def test_prepacked_kernel_order_equals_jax(threshold, t, n):
+    """Both regimes' order of work on zero-masked ragged windows (100
+    words: 3,200 inputs, threshold up to n_in / 8) at several cluster
+    sizes equals JAX's ``infer_window_batch``, and so does the plain
+    version the CPU op runs."""
+    rng = np.random.default_rng(1000 * t + n + threshold)
+    b, w, leak = 3, 100, 3
+    bank, wins = _bank(rng, n, w), _sparse_windows(rng, b, t, w)
+    t_total = np.array([0, t // 2, t])         # ragged, incl. 0 and T
+    wins[np.arange(t)[None, :] >= t_total[:, None]] = 0
+    want = np.asarray(jops.infer_window_batch(
+        jnp.asarray(bank), jnp.asarray(wins), threshold=threshold, leak=leak,
+        backend="ref"))
+    for cluster in (1, 3, 8):
+        np.testing.assert_array_equal(
+            prepacked_window_model(bank, wins, threshold, leak, cluster),
+            want)
+    for split in (1, 3):
+        np.testing.assert_array_equal(
+            prepacked_gemm_model(bank, wins, threshold, leak, split), want)
+    got = ops.infer_window_batch(as_words(bank), as_words(wins),
+                                 threshold=threshold, leak=leak)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if threshold == 0:          # an empty cycle fires: every cycle counts
+        assert (want == t).all()

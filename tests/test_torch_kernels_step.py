@@ -101,11 +101,21 @@ def test_lif_step_matches_jax(n, threshold, leak, backend):
     assert got[1].any() and not got[1].all()
 
 
+# Word widths that pick each path of the CUDA SU kernel: rows of up to
+# 128 words in a warp's registers (1, 25, 128), longer rows a block each
+# with a shared-memory stash (129, 4,096; 4,096 takes 16-byte copies).
+SU_WIDTHS = [1, 25, 128, 129, 4096]
+
+
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
 @pytest.mark.parametrize("n,w,w_exp,ltp", [(10, 25, 128, 16),
                                            (33, 7, 64, 1023),
                                            (40, 25, 512, 64),
-                                           (5, 130, 128, 0)])
+                                           (5, 130, 128, 0),
+                                           (9, 1, 16, 16),
+                                           (12, 128, 2048, 1023),
+                                           (11, 129, 2100, 64),
+                                           (4, 4096, 65536, 512)])
 def test_stdp_update_matches_jax(n, w, w_exp, ltp, backend):
     weights, pre, _, lanes, _ = _step_operands(n * 7 + w, n, w)
     fired = np.random.default_rng(n).integers(0, 2, n).astype(bool)
@@ -173,6 +183,49 @@ def test_stream_axis_equals_separate_streams(train, shared):
         su = ops.stdp_update(*_port(weights, pre), fired, as_words(lanes),
                              **_su(784, ltp_prob=torch.from_numpy(ltp)))
         assert torch.equal(su[0], got[0]) and torch.equal(su[1], got[3])
+
+
+def _fired_rows(pattern, shape, rng):
+    if pattern == "all":
+        return np.ones(shape, bool)
+    if pattern == "none":
+        return np.zeros(shape, bool)
+    fired = rng.integers(0, 2, shape).astype(bool)
+    fired[..., :2] = (True, False)
+    return fired
+
+
+@pytest.mark.parametrize("fired", ["all", "none", "mixed"])
+@pytest.mark.parametrize("w", SU_WIDTHS)
+@pytest.mark.parametrize("lead,shared", [((), False), ((3,), False),
+                                         ((3,), True)])
+def test_stdp_update_streams_match_jax(lead, shared, w, fired):
+    """The SU op at each path's width, on one stream or B streams with
+    their own ltp_prob (u32 compare: -1 is 2**32 - 1, always LTP), against
+    a bank per stream or one shared bank: each stream equals the JAX
+    package's op on that stream alone, ``ref`` and ``interp``."""
+    n = 6
+    weights, pre, _, lanes, _ = _step_operands(w + len(lead) + shared, n, w,
+                                               () if shared else lead)
+    pre = _words(np.random.default_rng(w), lead + (w,))
+    post = _fired_rows(fired, lead + (n,), np.random.default_rng(n + w))
+    ltp = np.array([16, -1, 0], np.int32)[:lead[0] if lead else 1]
+    su = dict(w_exp=16 * w, gain=4, n_syn=32 * w - 5)
+    got = ops.stdp_update(*_port(weights, pre, post, lanes),
+                          ltp_prob=torch.from_numpy(ltp), **su)
+    assert got[0].shape == lead + (n, w)
+    for i in range(ltp.size):
+        one = (lambda x: x[i]) if lead else (lambda x: x)
+        bank = (lambda x: x) if shared or not lead else one
+        for backend in JAX_BACKENDS:
+            want = jops.stdp_update(
+                jnp.asarray(bank(weights)), jnp.asarray(one(pre)),
+                jnp.asarray(one(post)), jnp.asarray(bank(lanes)),
+                ltp_prob=int(ltp[i]) & 0xFFFFFFFF, backend=backend, **su)
+            _assert_equal((one(got[0]), one(got[1])), want)
+    if fired == "none":         # every row copied through
+        assert torch.equal(got[0], as_words(weights).expand(got[0].shape))
+        assert torch.equal(got[1], as_words(lanes).expand(got[1].shape))
 
 
 @pytest.mark.parametrize("lead", [(), (2,)])

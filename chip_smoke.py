@@ -33,9 +33,14 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    "step-active" (one stream), "step-infer" (B = 32 samples against one
    shared 40-neuron bank, SU idle), "large" (1,000 neurons of 65,536
    inputs) and the quickstart's (n = 40, w = 25); the unfused
-   SPU -> NU -> SU chain must equal the fused step; at "step-parallel" a
-   72-step window recorded as one CUDA graph, with dependent launches (as
-   the engine records it) and without, timed per step and held equal.
+   SPU -> NU -> SU chain must equal the fused step; at "large" the SPU,
+   SU and fused step also timed cold (128 MB written before each launch,
+   so the bank comes from HBM, not the L2); at "step-parallel",
+   "step-infer" and "large" 72 cycles recorded as one CUDA graph in two
+   forms, the fused step and the unfused chain (``snn.ls -> snn.sp ->
+   + teach -> snn.nu -> snn.su``), each with dependent launches (as the
+   engine records a window) and without, timed per cycle, all four held
+   equal (weights, v, LFSR, rasters).
 4. The serving slice: Wenquxing 22A intensity requests served through
    the port's ``SNNServingEngine`` on the card; every request must be
    SERVED, with no degradation, and equal to the plain version's counts
@@ -64,7 +69,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    predictions on 200 test digits), with the launch counts set to 0
    before and read after and every plain version watched; one
    presentation through the fine-grained instructions (``snn.sp``,
-   ``snn.nu``, ``snn.su``) held equal to ``snn.step``.  The step path
+   ``snn.nu``, ``snn.su``, each after the first cycle a programmatic
+   dependent launch, 72 launches of each kernel) held equal to
+   ``snn.step``.  The step path
    replays one CUDA graph per window key (at least one replay required).
    Prints each mode's times beside the window path's, the graphs recorded
    and replayed, traces a short step-path run under ``torch.profiler``
@@ -1011,11 +1018,20 @@ def phase_train_trace(x, labels, cycle_backend: str = "window") -> None:
 
 STEP_KERNELS = ("fused_snn_step", "spike_process", "lif_step", "stdp_update")
 STEP_SYMBOLS = {"fused_snn_step": "fused_step_kernel",
-                "spike_process": "spike_process_kernel",
+                # spike_process_short_kernel (<= 128 words) or
+                # spike_process_long_kernel, by the row's width
+                "spike_process": "spike_process_",
                 "lif_step": "lif_kernel",
                 # stdp_short_kernel, stdp_long_kernel or stdp_wide_kernel,
                 # by the row's width
                 "stdp_update": "stdp_"}
+# the graph timings of phase 3 (ms per cycle): the fused step's window
+# and the unfused chain's, with dependent launches and serial
+GRAPH_KEYS = ("graph_step_ms", "graph_step_ms_serial", "chain_graph_ms",
+              "chain_graph_ms_serial")
+# bytes written between two timed launches to evict the 50 MB L2, so
+# that a "cold" time reads its inputs from HBM
+FLUSH_BYTES = 128 << 20
 
 
 def step_bound(rates: Rates, kname: str, *, b: int, n: int, words: int,
@@ -1104,49 +1120,88 @@ def step_operands(shape: str, dev: torch.device) -> dict:
 
 
 def step_graph_ms(o: dict, t_steps: int = 72) -> dict:
-    """Device time per step of a window of ``t_steps`` fused steps at one
-    of phase 3's step shapes, recorded as one CUDA graph as the engine
-    records it (each step after the first a programmatic dependent of the
-    one before) and, beside it, with every step launched as usual; the
-    two must leave equal weights, v and LFSR.  CUDA events around each
-    replay, the median of 50, over ``t_steps``."""
-    from repro_torch.kernels import ops
+    """Device time per cycle of ``t_steps`` cycles at one of phase 3's
+    step shapes in two forms, each recorded as one CUDA graph as the
+    engine records a window: the fused step (``snn.step``, one launch a
+    cycle) and the unfused chain (``snn.ls -> snn.sp -> + teach ->
+    snn.nu -> snn.su``; no add where the shape has no teacher current,
+    no SU where its SU is idle).  Each is recorded once with every
+    launch after the first a programmatic dependent of the kernel before
+    it and once with every launch serial; all four must leave equal
+    weights, v, LFSR and rasters.  CUDA events around each replay, the
+    median of 50, over ``t_steps``."""
+    from repro_torch.core import rvsnn
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.stdp import STDPParams
 
     dev = o["weights"].device
     rng = np.random.default_rng(0x6A9)
-    shape = (t_steps, o["b"], o["words"])
+    shape = (t_steps,) + tuple(o["pre"].shape)
     wins = torch.from_numpy(
         (rng.integers(0, 2**32, shape, dtype=np.uint32)
          & rng.integers(0, 2**32, shape, dtype=np.uint32)).view(np.int32)
     ).to(dev)
+    kw, teach = o["kw"], o["teach"]
+    lif = LIFParams(kw["threshold"], kw["leak"])
+    su = (STDPParams(kw["w_exp"], kw["gain"], kw["n_syn"], o["ltp"])
+          if o["train"] else None)
 
-    def window(dependent: bool):
-        w, v, lanes = o["weights"], o["v"], o["lfsr"]
+    def window(fused: bool, dependent: bool):
+        rf = rvsnn.SnnRegFile(spike=o["pre"], v=o["v"], lfsr=o["lfsr"],
+                              weights=o["weights"])
+        raster = []
         for t in range(t_steps):
-            w, v, _, lanes = ops.fused_snn_step(
-                w, wins[t], v, lanes, o["teach"], ltp_prob=o["ltp"],
-                dependent=dependent and t > 0, **o["kw"])
-        return w, v, lanes
+            after_first = dependent and t > 0
+            if fused:
+                rf, fired = rvsnn.snn_step(rf, wins[t], lif, su, teach,
+                                           dependent=after_first)
+            else:
+                rf = rvsnn.snn_ls(rf, wins[t])
+                counts = rvsnn.snn_sp(rf, dependent=after_first)
+                if teach is not None:
+                    counts = counts + teach
+                rf, fired = rvsnn.snn_nu(rf, counts, lif, dependent=dependent)
+                if su is not None:
+                    rf = rvsnn.snn_su(rf, fired, su, dependent=dependent)
+            raster.append(fired)
+        return rf.weights, rf.v, rf.lfsr, torch.stack(raster)
 
     out, states = {}, {}
-    for dependent in (True, False):
-        window(False)                     # warm-up outside the graph
+    for key in GRAPH_KEYS:
+        fused, dependent = key.startswith("graph"), not key.endswith("serial")
+        window(fused, False)              # warm-up outside the graph
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            res = window(dependent)
-        out[dependent] = time_ms(graph.replay, 50) / t_steps
-        states[dependent] = [x.clone() for x in res]
+            res = window(fused, dependent)
+        out[key] = time_ms(graph.replay, 50) / t_steps
+        states[key] = [x.clone() for x in res]
         del graph
-    if not all(torch.equal(a, c) for a, c in zip(*states.values())):
-        fail("the step graph with dependent launches differs from the one "
-             "without")
-    return dict(graph_step_ms=out[True], graph_step_ms_serial=out[False])
+    want = states[GRAPH_KEYS[0]]
+    for key, got in states.items():
+        for name, a, c in zip(("weights", "v", "LFSR", "raster"), got, want):
+            if not torch.equal(a, c):
+                fail(f"{key}: the {t_steps}-cycle graph leaves other {name} "
+                     f"than the fused step's graph with dependent launches")
+    return out
+
+
+def cold_kernel_ms(fn, symbol: str, reps: int, dev: torch.device) -> float:
+    """``kernel_ms`` of ``fn`` with ``FLUSH_BYTES`` written before each
+    call, so that its inputs come from HBM, not the L2."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def call():
+        flush.fill_(1)
+        return fn()
+
+    return kernel_ms(call, symbol, reps)
 
 
 def phase_step_kernels(rates: Rates) -> dict:
     """Phase 3, the per-cycle RV-SNN step kernels against their plain
-    versions, and the unfused SPU -> NU -> SU chain against the fused
-    step."""
+    versions (the SPU, SU and fused step at "large" also cold), the
+    unfused SPU -> NU -> SU chain against the fused step, and both as
+    72-cycle CUDA graphs with and without dependent launches."""
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
@@ -1194,6 +1249,13 @@ def phase_step_kernels(rates: Rates) -> dict:
             out[(kname, shape)], got[kname] = hold_and_time(
                 kname, what, call, STEP_SYMBOLS[kname], reps, plain_reps,
                 bound_of(kname))
+            if shape == "large" and kname != "lif_step":
+                t = out[(kname, shape)]
+                t["ms_cold"] = cold_kernel_ms(
+                    lambda: call("kernel"), STEP_SYMBOLS[kname], reps, dev)
+                print(f"kernel {kname} @ {what}: cold (L2 flushed before "
+                      f"each launch) ms={t['ms_cold']}, warm ms={t['ms']}",
+                      flush=True)
             if kname == "spike_process":
                 counts = got[kname][0]
                 state["count"] = counts if teach is None else counts + teach
@@ -1211,14 +1273,17 @@ def phase_step_kernels(rates: Rates) -> dict:
         print(f"step kernels @ {shape}: fired rows {int(fused[2].sum())}"
               + ("; unfused chain == fused step" if "lif_step" in got
                  else ""), flush=True)
-        if shape == "step-parallel":
-            out[("fused_snn_step", shape)].update(step_graph_ms(o))
-            print(f"fused_snn_step @ {shape}: a 72-step window as one CUDA "
-                  f"graph, per step: dependent launches "
-                  f"{out[('fused_snn_step', shape)]['graph_step_ms']} ms, "
-                  f"serial launches "
-                  f"{out[('fused_snn_step', shape)]['graph_step_ms_serial']}"
-                  f" ms (equal state)", flush=True)
+        if shape in ("step-parallel", "step-infer", "large"):
+            g = step_graph_ms(o)
+            out[("fused_snn_step", shape)].update(g)
+            chain = ("snn.sp" + (" -> + teach" if teach is not None else "")
+                     + " -> snn.nu" + (" -> snn.su" if train else ""))
+            print(f"step graphs @ {what}: 72 cycles as one CUDA graph, us "
+                  f"per cycle: fused step {1e3 * g['graph_step_ms']} "
+                  f"dependent, {1e3 * g['graph_step_ms_serial']} serial; "
+                  f"unfused chain ({chain}) {1e3 * g['chain_graph_ms']} "
+                  f"dependent, {1e3 * g['chain_graph_ms_serial']} serial "
+                  f"(equal weights, v, LFSR, rasters)", flush=True)
     return out
 
 
@@ -1286,29 +1351,39 @@ def step_slice_runs(cycle_backend: str, x, labels, test_windows) -> dict:
 def rvsnn_program(model, window: torch.Tensor, label: int) -> int:
     """One presentation of ``window`` to the trained 784-40 population
     through the RV-SNN instructions one at a time (``snn.ls``, ``snn.sp``
-    + teach, ``snn.nu``, ``snn.su``: three kernel launches a cycle), and
-    through ``snn.step`` (one launch a cycle); fails unless the register
-    files and rasters are equal.  Returns the rows fired."""
+    + teach, ``snn.nu``, ``snn.su``: three kernel launches a cycle, each
+    after the first cycle a programmatic dependent of the kernel before
+    it), then through ``snn.step`` (one launch a cycle); fails unless the
+    register files and rasters are equal.  Returns the rows fired."""
     from repro_torch.core import rvsnn
+    from repro_torch.kernels import ops
 
     cfg = model.cfg
     teach = torch.where(model.neuron_class == label, cfg.teach_pos,
                         cfg.teach_neg).to(torch.int32)
     lif, su = cfg.lif(), cfg.stdp()
+    # ltp_prob on the card once, so that no host copy sits in the chain
+    su = su._replace(ltp_prob=ops.seed_vector(su.ltp_prob, 1, teach.device))
     fine = fused = rvsnn.snn_regfile(model.weights, seed=0x22A)
-    total = 0
+    rasters = ([], [])
     for t, words in enumerate(window):
+        dep = t > 0
         fine = rvsnn.snn_ls(fine, words)
-        fine, fired = rvsnn.snn_nu(fine, rvsnn.snn_sp(fine) + teach, lif)
-        fine = rvsnn.snn_su(fine, fired, su)
-        fused, fired_fused = rvsnn.snn_step(fused, words, lif, su, teach)
-        if not torch.equal(fired, fired_fused):
-            fail(f"snn.sp/nu/su and snn.step fire differently at cycle {t}")
-        total += int(fired.sum())
+        counts = rvsnn.snn_sp(fine, dependent=dep) + teach
+        fine, fired = rvsnn.snn_nu(fine, counts, lif, dependent=dep)
+        fine = rvsnn.snn_su(fine, fired, su, dependent=dep)
+        rasters[0].append(fired)
+    for words in window:
+        fused, fired = rvsnn.snn_step(fused, words, lif, su, teach)
+        rasters[1].append(fired)
+    fine_r, fused_r = (torch.stack(r) for r in rasters)
+    if not torch.equal(fine_r, fused_r):
+        t = int((fine_r != fused_r).flatten(1).any(1).nonzero()[0])
+        fail(f"snn.sp/nu/su and snn.step fire differently at cycle {t}")
     for name, a, b in zip(fine._fields, fine, fused):
         if not torch.equal(a, b):
             fail(f"snn.sp/nu/su and snn.step leave different {name}")
-    return total
+    return int(fine_r.sum())
 
 
 def phase_step_slice() -> dict:
@@ -1974,10 +2049,10 @@ def main() -> None:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": None, "shape": "step-parallel",
             "call_ms": main_t["call_ms"],
-            **{k: main_t[k] for k in ("graph_step_ms", "graph_step_ms_serial")
-               if k in main_t},
+            **{k: main_t[k] for k in GRAPH_KEYS if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
-                                         "bound_ms", "bound_by")}
+                                         "bound_ms", "bound_by", "ms_cold")
+                       + GRAPH_KEYS if k in t}
                for shape, t in shapes.items() if shape != "step-parallel"}})
     main_t = flash["gemma-global-bf16"]
     kernels.append({

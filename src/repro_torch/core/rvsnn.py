@@ -19,7 +19,14 @@ launches the CUDA kernel and one on the CPU runs its plain version;
 carry a leading stream axis on every field, and the weight bank and
 LFSR may lack it (one bank shared by every stream, e.g. B samples
 served against one bank): one launch then covers all streams.  Bit-exact
-with ``repro.core.rvsnn``.  Words are int32 bit patterns, LFSR lanes
+with ``repro.core.rvsnn``.
+
+Every kernel instruction takes ``dependent`` (default False): on a card
+it launches as a programmatic dependent of the stream's previous kernel
+(``kernels/ops.py``), so a chain of cycles, ``snn.sp -> + teach ->
+snn.nu -> snn.su`` each after the first launch, overlaps each launch
+with the end of the one before, as a window of ``snn.step`` does.  The
+plain versions ignore it.  Words are int32 bit patterns, LFSR lanes
 16-bit values in int32.
 """
 
@@ -89,27 +96,38 @@ def snn_ls(rf: SnnRegFile, spike_words: torch.Tensor) -> SnnRegFile:
     return rf._replace(spike=spike_words.to(torch.int32))
 
 
-def snn_sp(rf: SnnRegFile, backend: str = "kernel") -> torch.Tensor:
-    """``snn.sp``: valid-spike counts, popcount(spike & weights) per row."""
-    return ops.spike_process(rf.spike, rf.weights, backend=backend)
+def snn_sp(rf: SnnRegFile, backend: str = "kernel",
+           dependent: bool = False) -> torch.Tensor:
+    """``snn.sp``: valid-spike counts, popcount(spike & weights) per row.
+    ``dependent``: the stream's previous kernel may still be running and
+    must not write the spike register (``ops.spike_process``)."""
+    return ops.spike_process(rf.spike, rf.weights, dependent=dependent,
+                             backend=backend)
 
 
 def snn_nu(rf: SnnRegFile, counts: torch.Tensor, p: LIFParams,
-           backend: str = "kernel") -> tuple[SnnRegFile, torch.Tensor]:
+           backend: str = "kernel", dependent: bool = False
+           ) -> tuple[SnnRegFile, torch.Tensor]:
     """``snn.nu``: streamlined-LIF membrane update; returns the fired
-    mask."""
+    mask.  ``dependent`` is right after any kernel: the NU loads nothing
+    before its wait.  After the ``+ teach`` add it gains little, as that
+    PyTorch kernel lets its dependents start only when it ends."""
     v_next, fired = ops.lif_step(rf.v, counts, p.threshold, p.leak,
-                                 backend=backend)
+                                 dependent=dependent, backend=backend)
     return rf._replace(v=v_next), fired
 
 
 def snn_su(rf: SnnRegFile, fired: torch.Tensor, p: STDPParams,
-           backend: str = "kernel") -> SnnRegFile:
+           backend: str = "kernel", dependent: bool = False) -> SnnRegFile:
     """``snn.su``: binary stochastic STDP row update on post-spikes
-    (``p.ltp_prob`` may be one value per stream)."""
+    (``p.ltp_prob`` may be one value per stream; pass it as an int32[B]
+    tensor on the card to keep a host copy out of a dependent chain).
+    ``dependent`` is right after any kernel: the SU loads nothing before
+    its wait."""
     w_out, lf_out = ops.stdp_update(
         rf.weights, rf.spike, fired, rf.lfsr, w_exp=p.w_exp, gain=p.gain,
-        n_syn=p.n_syn, ltp_prob=p.ltp_prob, backend=backend)
+        n_syn=p.n_syn, ltp_prob=p.ltp_prob, dependent=dependent,
+        backend=backend)
     return rf._replace(weights=w_out, lfsr=lf_out)
 
 

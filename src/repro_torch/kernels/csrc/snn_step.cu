@@ -2,7 +2,8 @@
 // RV-SNN V1.0 instructions, one launch per instruction and cycle.
 //
 // Replaces four Pallas TPU kernels of src/repro/kernels/snn_kernels.py:
-//   spike_process_kernel  <- spike_process (_spike_process_kernel), SPU,
+//   spike_process_short_kernel, spike_process_long_kernel
+//                         <- spike_process (_spike_process_kernel), SPU,
 //                            snn.sp: counts[b, i] = sum_k popc(pre[b, k] &
 //                            w[b, i, k]).
 //   lif_kernel            <- lif_step (_lif_kernel), NU, snn.nu:
@@ -30,20 +31,41 @@
 // or integer rate, so each launch costs what a launch costs.  At large
 // widths (65,536 inputs, 1,000 rows) they are bandwidth-bound: the fused
 // training step reads the bank and its LFSR lanes and writes both anew,
-// 16 bytes per word.
+// 16 bytes per word; the SPU alone reads the bank once, 4 bytes a word.
 //
 // What the design does about it: one pass, and launches that overlap.
-// One warp owns a row (lanes stride its words, coalesced): the SPU
-// popcount reduces to every lane, so each lane runs the LIF update itself
-// and `fired` is uniform across the warp with no broadcast; lane 0
-// writes v' and the fired byte.  A fired row then runs the STDP pass
-// (snn::stdp_row, the window kernels' pass, shared through
+// Every kernel here may launch as a programmatic dependent
+// (griddepcontrol) of the stream's previous kernel: its blocks start
+// while that one ends, load what no earlier kernel of the chain wrote,
+// then wait for the previous grid to finish before they read anything
+// else or write at all.  Every thread of every block waits before it
+// exits, a thread with no row too, so a grid completes only after the
+// grid it depends on: the unfused chain (snn.sp -> snn.nu -> snn.su, one
+// launch each, recorded as one CUDA graph) relies on that, as snn.nu
+// reads the v written three launches back and snn.sp the bank the last
+// snn.su wrote.
+//
+// The SPU alone (spike_process) holds rows of up to 128 words (the
+// paper's 25) in registers, one warp a row, the spikes loaded before the
+// wait and the row after it (spike_process_short_kernel).  Longer rows
+// (65,536 inputs: 2,048 words) take kSpuRowWarps warps each, two rows a
+// block, so 1,000 rows are 500 blocks, all resident at once; each lane
+// keeps kSpuVecs 16-byte loads of the row and as many of the spikes in
+// flight (4-byte loads where W % 4 != 0 or a base is not 16-byte
+// aligned), and the warps' partial counts meet in shared memory
+// (spike_process_long_kernel).  The NU alone (lif_step) is one thread a
+// neuron and has nothing to load before its wait (v and count are both
+// written inside the chain): its time is a launch's (lif_kernel).
+//
+// The fused step: one warp owns a row (lanes stride its words,
+// coalesced): the SPU popcount reduces to every lane, so each lane runs
+// the LIF update itself and `fired` is uniform across the warp with no
+// broadcast; lane 0 writes v' and the fired byte.  A fired row then runs
+// the STDP pass (snn::stdp_row, the window kernels' pass, shared through
 // snn_common.cuh), reading the input row and writing the output row; an
 // unfired row is copied through.  `train = false` compiles the SU out
 // and writes only v' and the raster, so the bank and LFSR are returned
-// as they came.  The LIF kernel is one thread per (stream, neuron).  No
-// kernel writes an input, and none but stdp_long_kernel needs shared
-// memory or a barrier.
+// as they came.  No kernel writes an input.
 //
 // The SU alone (stdp_update) reads each word of a row's weights and LFSR
 // lanes once and writes it once, where snn::stdp_row (which the fused
@@ -60,16 +82,14 @@
 // the LTD from the stash and writes the weights (stdp_long_kernel).  An
 // unfired row is copied through in pass 1.  Rows wider than a block's
 // shared memory holds (8 bytes a word) keep the two-pass form, one warp a
-// row (stdp_wide_kernel).
+// row (stdp_wide_kernel).  As a dependent it waits before its first load.
 //
 // The fused step is the step path's one launch per cycle, 72 a window,
 // so its launch latency is the cost.  The engine records a window's
 // launches as one CUDA graph and launches each step after the first as a
-// programmatic dependent (griddepcontrol) of the step before: the next
-// step's blocks start while this one ends, load what no earlier cycle
-// wrote (this cycle's spikes, teacher current and ltp_prob, and with the
-// SU idle the shared bank), and only then wait for the previous grid to
-// finish before they read v, the weights and the LFSR.  Rows of up to
+// dependent of the step before: the next step loads this cycle's spikes,
+// teacher current and ltp_prob (and with the SU idle the shared bank)
+// before its wait, v, the weights and the LFSR after it.  Rows of up to
 // 128 words (the paper's 25) hold their words in registers: every load
 // of the row issues before the dependent chain, and the STDP pass runs
 // on registers.  The window kernels of snn_train.cu are the fused form
@@ -104,7 +124,7 @@ struct Step {
   uint32_t* lfsr_out;           // SU
   int32_t* v_out;               // NU
   uint8_t* fired;               // NU
-  int32_t* counts;              // spike_process_kernel
+  int32_t* counts;              // SPU
   int n, W, shared, threshold, leak, w_exp, gain, n_syn;
 };
 
@@ -142,16 +162,6 @@ __device__ __forceinline__ void su_row(const Step& o, const Row& row,
   }
 }
 
-// Valid-spike count of this warp's row, on every lane.
-__device__ __forceinline__ int row_count(const Step& o, const Row& row,
-                                         int lane) {
-  const uint32_t* w = o.weights + row.bank * o.W;
-  const uint32_t* pre = o.pre + static_cast<size_t>(blockIdx.y) * o.W;
-  int acc = 0;
-  for (int k = lane; k < o.W; k += 32) acc += __popc(pre[k] & w[k]);
-  return snn::warp_sum(acc);
-}
-
 // Programmatic dependent launch (sm_90): wait until the grid this one
 // depends on has finished and its writes are visible (a no-op when the
 // launch has no such dependency), and let the next grid start early.
@@ -163,20 +173,124 @@ __device__ __forceinline__ void allow_next_grid() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// Words of a row each lane holds in registers on the short-row path of
-// the fused step: rows of up to 32 * kHeld words.
+// Words of a row each lane holds in registers on the short-row paths
+// (the fused step, the SPU and the SU): rows of up to 32 * kHeld words.
 constexpr int kHeld = 4;
 
-__global__ void __launch_bounds__(kThreads) spike_process_kernel(Step o) {
+// SPU on rows of W <= 32 * kHeld words: one warp a row, in registers.
+__global__ void __launch_bounds__(kThreads) spike_process_short_kernel(Step o) {
   Row row;
-  if (!warp_row(o, &row)) return;   // whole warps leave together
+  const bool live = warp_row(o, &row);
   const int lane = threadIdx.x % 32;
-  const int count = row_count(o, row, lane);
-  if (lane == 0) o.counts[row.nrn] = count;
+  const int W = o.W;
+  const uint32_t* pre = o.pre + static_cast<size_t>(blockIdx.y) * W;
+  uint32_t pre_r[kHeld], w_r[kHeld];
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {   // this cycle's spikes: no kernel
+    const int k = lane + 32 * j;      // of the chain writes them
+    pre_r[j] = live && k < W ? pre[k] : 0;
+  }
+  wait_for_previous_grid();           // the bank the last snn.su wrote
+  const uint32_t* w = o.weights + (live ? row.bank : 0) * W;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int k = lane + 32 * j;
+    w_r[j] = live && k < W ? w[k] : 0;
+  }
+  allow_next_grid();                  // its own wait keeps it off counts
+  if (!live) return;                  // whole warps leave together
+  int acc = 0;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) acc += __popc(pre_r[j] & w_r[j]);
+  acc = snn::warp_add(acc);
+  if (lane == 0) o.counts[row.nrn] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-lif_kernel(Step o, int total) {
+// SPU on longer rows: kSpuRowWarps warps a row, kWarps / kSpuRowWarps
+// rows a block; in a round each lane keeps kSpuVecs 16-byte loads of the
+// row (or 4 * kSpuVecs 4-byte ones) and as many of the spikes in flight.
+constexpr int kSpuRowWarps = 4;
+constexpr int kSpuRowThreads = 32 * kSpuRowWarps;
+constexpr int kSpuRows = kWarps / kSpuRowWarps;
+constexpr int kSpuVecs = 4;
+constexpr int kSpuSpan = 4 * kSpuRowThreads * kSpuVecs;   // words a round
+
+// This lane's share of words base .. base + kSpuSpan - 1 of a row of W
+// words (0 past its end): with kVec, vectors base / 4 + t + j *
+// kSpuRowThreads (W % 4 == 0, 16-byte aligned row); else words base + t
+// + m * kSpuRowThreads, four to a slot.  Every load is coalesced and all
+// are issued before the first is used.
+template <bool kVec>
+__device__ __forceinline__ void spu_round(const uint32_t* row, int base,
+                                          int t, int W,
+                                          uint4 (&x)[kSpuVecs]) {
+  constexpr int s = kSpuRowThreads;
+#pragma unroll
+  for (int j = 0; j < kSpuVecs; ++j) {
+    if (kVec) {
+      const int q = base / 4 + t + j * s;
+      x[j] = q < W / 4 ? reinterpret_cast<const uint4*>(row)[q]
+                       : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      const int k = base + t + 4 * j * s;
+      x[j] = make_uint4(k < W ? row[k] : 0u, k + s < W ? row[k + s] : 0u,
+                        k + 2 * s < W ? row[k + 2 * s] : 0u,
+                        k + 3 * s < W ? row[k + 3 * s] : 0u);
+    }
+  }
+}
+
+__device__ __forceinline__ int popc_and(const uint4 (&p)[kSpuVecs],
+                                        const uint4 (&w)[kSpuVecs]) {
+  int acc = 0;
+#pragma unroll
+  for (int j = 0; j < kSpuVecs; ++j)
+    acc += __popc(p[j].x & w[j].x) + __popc(p[j].y & w[j].y) +
+           __popc(p[j].z & w[j].z) + __popc(p[j].w & w[j].w);
+  return acc;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) spike_process_long_kernel(Step o) {
+  __shared__ int part[kWarps];
+  const int t = threadIdx.x % kSpuRowThreads;
+  const int r = blockIdx.x * kSpuRows + threadIdx.x / kSpuRowThreads;
+  const bool live = r < o.n;
+  const int W = o.W;
+  const size_t b = blockIdx.y;
+  const uint32_t* pre = o.pre + b * W;
+  const uint32_t* w =
+      o.weights + ((o.shared ? 0 : b * o.n) + (live ? r : 0)) * W;
+  uint4 p[kSpuVecs], x[kSpuVecs];
+  if (live) spu_round<kVec>(pre, 0, t, W, p);   // this cycle's spikes
+  wait_for_previous_grid();                     // the bank
+  int acc = 0;
+  if (live) spu_round<kVec>(w, 0, t, W, x);
+  allow_next_grid();
+  if (live) {
+    acc = popc_and(p, x);
+    for (int base = kSpuSpan; base < W; base += kSpuSpan) {
+      spu_round<kVec>(pre, base, t, W, p);
+      spu_round<kVec>(w, base, t, W, x);
+      acc += popc_and(p, x);
+    }
+  }
+  acc = snn::warp_add(acc);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (!live || t != 0) return;
+  const int first = threadIdx.x / 32;           // the row's first warp
+  int total = 0;
+#pragma unroll
+  for (int i = 0; i < kSpuRowWarps; ++i) total += part[first + i];
+  o.counts[b * o.n + r] = total;
+}
+
+// NU: one thread a neuron, kThreads a block.  (Four neurons a thread
+// through 16-byte loads, 4,096 a block, measured slower at every size.)
+__global__ void __launch_bounds__(kThreads) lif_kernel(Step o, int total) {
+  allow_next_grid();        // nothing to load early: the chain writes
+  wait_for_previous_grid(); // both count and v
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
   bool fired;
@@ -207,6 +321,8 @@ __device__ __forceinline__ void stdp_held(uint32_t (&w_r)[kHeld],
 
 // SU on rows of W <= 32 * kHeld words: one warp a row, in registers.
 __global__ void __launch_bounds__(kThreads) stdp_short_kernel(Step o) {
+  wait_for_previous_grid();         // the fired mask, the bank and LFSR
+  allow_next_grid();
   Row row;
   if (!warp_row(o, &row)) return;   // whole warps leave together
   const int lane = threadIdx.x % 32;
@@ -279,6 +395,8 @@ __global__ void __launch_bounds__(kLongThreads)
 stdp_long_kernel(Step o, int vec) {
   extern __shared__ __align__(16) uint4 stash[];
   __shared__ int part[kLongThreads / 32];
+  wait_for_previous_grid();
+  allow_next_grid();
   const int W = o.W;
   const int nvec = (W + 3) / 4;
   const size_t b = blockIdx.y;
@@ -334,6 +452,8 @@ stdp_long_kernel(Step o, int vec) {
 // SU on rows too wide for stdp_long_kernel's stash: one warp a row, the
 // two-pass snn::stdp_row.
 __global__ void __launch_bounds__(kThreads) stdp_wide_kernel(Step o) {
+  wait_for_previous_grid();
+  allow_next_grid();
   Row row;
   if (!warp_row(o, &row)) return;
   su_row(o, row, o.fired_in[row.nrn] != 0, threadIdx.x % 32);
@@ -425,33 +545,47 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Step o) {
   }
 }
 
-// One warp per row: grid (row groups, streams).
-template <typename Kernel>
-int launch_rows(Kernel kernel, const Step& o, int B, void* stream) {
-  const dim3 grid((o.n + kWarps - 1) / kWarps, B);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(o);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The fused step, one warp per row, as a programmatic dependent of the
-// stream's previous kernel when `dependent` is set.
-template <bool kLearn>
-int launch_step(const Step& o, int B, bool dependent, void* stream) {
+// Launches `kernel` on `stream` with `threads` a block and `smem` bytes
+// of dynamic shared memory, as a programmatic dependent of the stream's
+// previous kernel when `dependent` is set.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+           bool dependent, void* stream, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((o.n + kWarps - 1) / kWarps, B);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = dependent ? 1 : 0;
-  const cudaError_t err =
-      o.W <= 32 * kHeld
-          ? cudaLaunchKernelEx(&cfg, fused_step_kernel<kLearn, true>, o)
-          : cudaLaunchKernelEx(&cfg, fused_step_kernel<kLearn, false>, o);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One warp per row: grid (row groups, streams).
+template <typename Kernel>
+int launch_rows(Kernel kernel, const Step& o, int B, bool dependent,
+                void* stream) {
+  const dim3 grid((o.n + kWarps - 1) / kWarps, B);
+  return launch(kernel, grid, kThreads, 0, dependent, stream, o);
+}
+
+// The fused step, one warp per row.
+template <bool kLearn>
+int launch_step(const Step& o, int B, bool dependent, void* stream) {
+  return o.W <= 32 * kHeld
+             ? launch_rows(fused_step_kernel<kLearn, true>, o, B, dependent,
+                           stream)
+             : launch_rows(fused_step_kernel<kLearn, false>, o, B, dependent,
+                           stream);
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 Step bank(const void* weights, const void* pre, int n, int W, int shared) {
@@ -482,16 +616,26 @@ extern "C" {
 // snn.sp: reads spikes [B, W] and weights [B, n, W] ([n, W] if shared)
 // (u32); writes counts [B, n] (int32).
 int snn_spike_process(const void* spikes, const void* weights, void* counts,
-                      int B, int n, int W, int shared, void* stream) {
+                      int B, int n, int W, int shared, int dependent,
+                      void* stream) {
   Step o = bank(weights, spikes, n, W, shared);
   o.counts = static_cast<int32_t*>(counts);
-  return launch_rows(spike_process_kernel, o, B, stream);
+  const bool dep = dependent != 0;
+  if (W <= 32 * kHeld)
+    return launch_rows(spike_process_short_kernel, o, B, dep, stream);
+  const dim3 grid((n + kSpuRows - 1) / kSpuRows, B);
+  return W % 4 == 0 && aligned(weights, 16) && aligned(spikes, 16)
+             ? launch(spike_process_long_kernel<true>, grid, kThreads, 0, dep,
+                      stream, o)
+             : launch(spike_process_long_kernel<false>, grid, kThreads, 0,
+                      dep, stream, o);
 }
 
 // snn.nu over `total` neurons: reads v and count (int32); writes v_out
 // (int32) and fired (bytes).
 int snn_lif_step(const void* v, const void* count, void* v_out, void* fired,
-                 int total, int threshold, int leak, void* stream) {
+                 int total, int threshold, int leak, int dependent,
+                 void* stream) {
   Step o = {};
   o.v = static_cast<const int32_t*>(v);
   o.count = static_cast<const int32_t*>(count);
@@ -499,10 +643,9 @@ int snn_lif_step(const void* v, const void* count, void* v_out, void* fired,
   o.fired = static_cast<uint8_t*>(fired);
   o.threshold = threshold;
   o.leak = leak;
-  const int blocks = (total + kThreads - 1) / kThreads;
-  lif_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, total);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(total / kThreads + (total % kThreads != 0));
+  return launch(lif_kernel, grid, kThreads, 0, dependent != 0, stream, o,
+                total);
 }
 
 // snn.su: reads weights and lfsr [B, n, W] ([n, W] if shared) (u32), pre
@@ -511,26 +654,27 @@ int snn_lif_step(const void* v, const void* count, void* v_out, void* fired,
 int snn_stdp_update(const void* weights, const void* pre, const void* fired,
                     const void* lfsr, const void* ltp_prob, void* w_out,
                     void* lfsr_out, int B, int n, int W, int shared,
-                    int w_exp, int gain, int n_syn, void* stream) {
+                    int w_exp, int gain, int n_syn, int dependent,
+                    void* stream) {
   Step o = bank(weights, pre, n, W, shared);
   o.fired_in = static_cast<const uint8_t*>(fired);
   set_su(&o, lfsr, ltp_prob, w_out, lfsr_out, w_exp, gain, n_syn);
-  if (W <= 32 * kHeld) return launch_rows(stdp_short_kernel, o, B, stream);
+  const bool dep = dependent != 0;
+  if (W <= 32 * kHeld)
+    return launch_rows(stdp_short_kernel, o, B, dep, stream);
   size_t limit = 0;
   cudaError_t err = snn::block_smem_limit(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t stash = static_cast<size_t>((W + 3) / 4) * 32;
-  if (stash + 1024 > limit) return launch_rows(stdp_wide_kernel, o, B, stream);
+  if (stash + 1024 > limit)
+    return launch_rows(stdp_wide_kernel, o, B, dep, stream);
   err = snn::allow_smem(stdp_long_kernel, stash);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto aligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  const int vec = W % 4 == 0 && aligned(weights) && aligned(lfsr) &&
-                  aligned(pre) && aligned(w_out) && aligned(lfsr_out);
-  stdp_long_kernel<<<dim3(n, B), kLongThreads, stash,
-                     static_cast<cudaStream_t>(stream)>>>(o, vec);
-  return static_cast<int>(cudaGetLastError());
+  const int vec = W % 4 == 0 && aligned(weights, 16) && aligned(lfsr, 16) &&
+                  aligned(pre, 16) && aligned(w_out, 16) &&
+                  aligned(lfsr_out, 16);
+  return launch(stdp_long_kernel, dim3(n, B), kLongThreads, stash, dep,
+                stream, o, vec);
 }
 
 // snn.step: reads weights (and, if train, lfsr) [B, n, W] ([n, W] if

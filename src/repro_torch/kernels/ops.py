@@ -32,11 +32,14 @@ is needed: shapes are the caller's own.
 slice's prefill attention, ``csrc/flash_attn.cu``) lives in
 ``kernels/flash_attention.py`` beside its plain version.
 
-:func:`fused_snn_step` can launch as a programmatic dependent of the
-previous step in the stream (``dependent=True``): the engine's CUDA
-graph of a window's cycles does, and its replays count their launches
-here.  A launch made while a graph is being captured runs nothing and
-counts nothing.
+Each step op can launch as a programmatic dependent of the stream's
+previous kernel (``dependent=True``): its blocks start while that one
+ends, load what the op's docstring names before waiting for it, and
+read everything else and write only after.  The engine's CUDA graph of
+a window's fused steps does, and so can the unfused chain
+(``snn.sp -> snn.nu -> snn.su``); a graph's replays count their
+launches here.  A launch made while a graph is being captured runs
+nothing and counts nothing.
 
 The kernels never write their inputs: the training ops return new
 weight, v and LFSR tensors.  ``t_chunk`` is accepted for the JAX
@@ -81,9 +84,9 @@ _SIGNATURES = {
                   ("snn_window_infer_encode", "ppppppp iiiiiii p", "i"),
                   ("snn_train_tile_rows", "iiii", "i"),
                   ("snn_train_smem_bytes", "iiii", "l")),
-    "snn_step": (("snn_spike_process", "ppp iiii p", "i"),
-                 ("snn_lif_step", "pppp iii p", "i"),
-                 ("snn_stdp_update", "ppppppp iiiiiii p", "i"),
+    "snn_step": (("snn_spike_process", "ppp iiiii p", "i"),
+                 ("snn_lif_step", "pppp iiii p", "i"),
+                 ("snn_stdp_update", "ppppppp iiiiiiii p", "i"),
                  ("snn_fused_step", "pppppppppp iiiiiiiiiii p", "i")),
     "flash_attn": (("flash_attn_forward", "pppp lllllllll iiiiiiiii f p",
                     "i"),
@@ -690,11 +693,26 @@ def _step_streams(what: str, pre: torch.Tensor, weights: torch.Tensor):
     return b, shared, lead, n, w
 
 
+def _counted(op) -> None:
+    """One more launch of ``op``, unless the stream is being captured
+    (a graph's launches count when it is replayed)."""
+    if not torch.cuda.is_current_stream_capturing():
+        op.launches += 1
+
+
 def spike_process(spikes: torch.Tensor, weights: torch.Tensor, *,
+                  dependent: bool = False,
                   backend: str = "kernel") -> torch.Tensor:
     """SPU (``snn.sp``): valid-spike counts int32[..., n] =
     popcount(spikes & weights[i]) per row.  spikes int32[w] or [B, w],
-    weights int32[n, w] (shared) or [B, n, w] (u32 bit patterns)."""
+    weights int32[n, w] (shared) or [B, n, w] (u32 bit patterns).
+
+    ``dependent`` launches the kernel as a programmatic dependent of the
+    stream's previous kernel (the last ``snn.su`` of the chain, or
+    whichever kernel wrote the bank): it reads the spikes before waiting
+    for that kernel to finish, so the previous kernel must not write
+    them, and the bank only after.
+    """
     _check_backend(backend)
     if backend == "ref" or weights.device.type == "cpu":
         return _ref.spike_process_ref(spikes, weights)
@@ -706,15 +724,21 @@ def spike_process(spikes: torch.Tensor, weights: torch.Tensor, *,
     if b and n:
         _launch(what, "snn_step", "snn_spike_process", dev,
                 spikes.data_ptr(), weights.data_ptr(), counts.data_ptr(),
-                b, n, w, shared)
-        spike_process.launches += 1
+                b, n, w, shared, int(dependent))
+        _counted(spike_process)
     return counts
 
 
 def lif_step(v: torch.Tensor, count: torch.Tensor, threshold: int,
-             leak: int, *, backend: str = "kernel"):
+             leak: int, *, dependent: bool = False, backend: str = "kernel"):
     """NU (``snn.nu``): the streamlined LIF on int32 v and count of one
-    shape (any leading axes).  Returns (v' int32, fired bool)."""
+    shape (any leading axes).  Returns (v' int32, fired bool).
+
+    ``dependent`` launches the kernel as a programmatic dependent of the
+    stream's previous kernel: it loads nothing before waiting for that
+    kernel to finish (the chain writes both v and count), so any
+    previous kernel will do.
+    """
     _check_backend(backend)
     if backend == "ref" or v.device.type == "cpu":
         return _ref.lif_step_ref(v, count, threshold, leak)
@@ -729,22 +753,25 @@ def lif_step(v: torch.Tensor, count: torch.Tensor, threshold: int,
     if v.numel():
         _launch(what, "snn_step", "snn_lif_step", dev, v.data_ptr(),
                 count.data_ptr(), v2.data_ptr(), fired.data_ptr(),
-                v.numel(), threshold, leak)
-        lif_step.launches += 1
+                v.numel(), threshold, leak, int(dependent))
+        _counted(lif_step)
     return v2, fired
 
 
 def stdp_update(weights: torch.Tensor, pre_spikes: torch.Tensor,
                 post_fired: torch.Tensor, lfsr_state: torch.Tensor, *,
                 w_exp: int, gain: int, n_syn: int, ltp_prob=1023,
-                backend: str = "kernel"):
+                dependent: bool = False, backend: str = "kernel"):
     """SU (``snn.su``): binary stochastic STDP on the fired rows.
 
     weights, lfsr_state int32[n, w] or [B, n, w] (u32 bit patterns,
     16-bit LFSR lanes), pre_spikes int32[w] or [B, w], post_fired bool
     [n] or [B, n]; ``ltp_prob`` an int or one value per stream (int32[B],
     compared as u32).  Returns new (weights', lfsr'), [B, n, w] for B
-    streams; unfired rows are copied through.
+    streams; unfired rows are copied through.  ``dependent`` launches
+    the kernel as a programmatic dependent of the stream's previous
+    kernel (``snn.nu``, which wrote the fired mask): it loads nothing
+    before waiting for that kernel to finish.
     """
     _check_backend(backend)
     if backend == "ref" or weights.device.type == "cpu":
@@ -769,8 +796,8 @@ def stdp_update(weights: torch.Tensor, pre_spikes: torch.Tensor,
                 weights.data_ptr(), pre_spikes.data_ptr(),
                 post_fired.data_ptr(), lfsr_state.data_ptr(), lp.data_ptr(),
                 w2.data_ptr(), lf2.data_ptr(), b, n, w, shared, w_exp, gain,
-                n_syn)
-        stdp_update.launches += 1
+                n_syn, int(dependent))
+        _counted(stdp_update)
     return w2, lf2
 
 
@@ -832,8 +859,7 @@ def fused_snn_step(weights: torch.Tensor, pre_spikes: torch.Tensor,
                 v2.data_ptr(), fired.data_ptr(), su[3], b, n, w, shared,
                 threshold, leak, w_exp, gain, n_syn, int(train),
                 int(dependent))
-        if not torch.cuda.is_current_stream_capturing():
-            fused_snn_step.launches += 1
+        _counted(fused_snn_step)
     return w2, v2, fired, lf2
 
 

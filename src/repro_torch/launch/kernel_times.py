@@ -19,14 +19,23 @@ flash-attention shapes in float32 and bfloat16.  Each time is the
 profiler's device time per call of the kernels whose name holds one of
 the op's symbols (a kernel renamed between two checkouts is named by
 both) over ``--reps`` calls; every output is first held equal to the
-plain version (flash: within the dtype's tolerance).  Prints one JSON
-line.
+plain version (flash: within the dtype's tolerance).  The SPU at large
+is timed warm (its bank in the L2) and cold (128 MB written, or read,
+before each call).  At both step shapes, 72 cycles of the fused step
+and of the unfused chain (SPU -> + teach -> NU -> SU) are each recorded
+as one CUDA graph, with every launch after the first a programmatic
+dependent of the kernel before (where the checkout's ops take
+``dependent``) and serially, and timed per cycle (CUDA events, the
+median of ``--reps`` replays); all forms must leave the same state.
+Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import statistics
 import sys
 
 import numpy as np
@@ -57,6 +66,83 @@ def _device_ms(fn, symbols, reps: int) -> float:
             return sum(e.device_time_total / e.count for e in rows) / 1e3
     raise RuntimeError(f"the profiler recorded no {symbols} in "
                        f"{_PROFILER_TRIES} sessions")
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Median time of one call of ``fn`` from CUDA events, after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _graph_times(ops, o: dict, shape: str, reps: int,
+                 t_steps: int = 72) -> dict:
+    """ms per cycle of ``t_steps`` cycles recorded as one CUDA graph: the
+    fused step and the unfused chain, dependent (where the ops take it)
+    and serial, from ``o``'s step operands (one stream at large, as
+    phase 3 runs it); every form must leave the same state."""
+    chain_dep = "dependent" in inspect.signature(
+        ops.spike_process).parameters
+    one = (lambda t: t[0]) if shape == "large" else (lambda t: t)
+    w0, l0, v0 = (one(o[k]).contiguous() for k in ("weights", "lfsr",
+                                                   "v_step"))
+    teach = one(o["teach"][:o["b"]]).contiguous()
+    lp = o["ltp"][:1] if shape == "large" else o["ltp"]
+    kw = o["kw"]
+    su = {k: kw[k] for k in ("w_exp", "gain", "n_syn")}
+    rng = np.random.default_rng(0x6A9)
+    size = (t_steps,) + tuple(one(o["wins"][:, 0]).shape)
+    wins = torch.from_numpy(
+        (rng.integers(0, 2**32, size, dtype=np.uint32)
+         & rng.integers(0, 2**32, size, dtype=np.uint32)).view(np.int32)
+    ).to(w0.device)
+
+    def window(fused: bool, dependent: bool):
+        # the flag only where it is set: a parent's SPU, NU and SU lack it
+        dep = dict(dependent=True) if dependent else {}
+        w, v, lanes, raster = w0, v0, l0, []
+        for t in range(t_steps):
+            first = {} if t == 0 else dep
+            if fused:
+                w, v, fired, lanes = ops.fused_snn_step(
+                    w, wins[t], v, lanes, teach, ltp_prob=lp, **first, **kw)
+            else:
+                counts = ops.spike_process(wins[t], w, **first) + teach
+                v, fired = ops.lif_step(v, counts, kw["threshold"],
+                                        kw["leak"], **dep)
+                w, lanes = ops.stdp_update(w, wins[t], fired, lanes,
+                                           ltp_prob=lp, **dep, **su)
+            raster.append(fired)
+        return w, v, lanes, torch.stack(raster)
+
+    forms = {"fused_snn_step": (True, True),
+             "fused_snn_step serial": (True, False),
+             "chain serial": (False, False)}
+    if chain_dep:
+        forms["chain"] = (False, True)
+    out, states = {}, []
+    for name, (fused, dependent) in forms.items():
+        window(fused, False)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            res = window(fused, dependent)
+        out[f"graph {name} @ {shape} per cycle"] = (
+            _event_ms(graph.replay, reps) / t_steps)
+        states.append([x.clone() for x in res])
+        del graph
+    for got in states[1:]:
+        _same(got, states[0])
+    return out
 
 
 def _operands(shape: str, dev: torch.device) -> dict:
@@ -240,8 +326,11 @@ def main(argv=None) -> None:
                              backend="ref")[1]
         su = {k: kw[k] for k in ("w_exp", "gain", "n_syn")}
         calls.update({
+            # spike_process_kernel before the SPU's redesign;
+            # spike_process_short_kernel or spike_process_long_kernel
+            # after it
             "spike_process": (
-                "spike_process_kernel",
+                "spike_process_",
                 lambda be: ops.spike_process(pre, w1, backend=be)),
             "lif_step": (
                 "lif_kernel",
@@ -268,6 +357,21 @@ def main(argv=None) -> None:
             out[f"{name} @ {shape}"] = ms
             if name == "train_stream_batch_encode":
                 out[f"{name} @ {shape} per sample"] = ms / 8
+        if shape == "large":
+            # 128 MB through the L2 before each call, so the bank comes
+            # from HBM: written (the L2 left dirty: the reads' evictions
+            # write back, as chip_smoke.py's cold times do) or read
+            flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+            for name, touch in (("cold", lambda: flush.fill_(1)),
+                                ("cold clean", lambda: flush.sum())):
+                def cold(touch=touch):
+                    touch()
+                    return calls["spike_process"][1]("kernel")
+
+                out[f"spike_process @ large {name}"] = _device_ms(
+                    cold, "spike_process_", reps)
+            del flush
+        out.update(_graph_times(ops, o, shape, args.reps))
     out.update(_serving_times(ops, dev, args.reps))
     out.update(_flash_times(dev, max(args.reps // 2, 3)))
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -602,6 +602,148 @@ def test_cuda_stdp_update_paths_equal_plain(cuda, lead, shared, words,
         assert not torch.equal(got[1], lanes.expand(got[1].shape))
 
 
+def _words_at(rng, shape, offset, cuda, lanes=False):
+    """Random words (or LFSR lanes) on the card as a view ``offset``
+    words past a 16-byte aligned base."""
+    x = (rng.integers(1, 2**16, shape).astype(np.uint32) if lanes else
+         rng.integers(0, 2**32, shape, dtype=np.uint32))
+    flat = as_words(np.concatenate([np.zeros(offset, np.uint32),
+                                    x.reshape(-1)]), cuda)
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dependent", [False, True])
+@pytest.mark.parametrize("words,offset", [
+    (1, 0), (25, 0), (128, 0),          # a warp a row, in registers
+    (129, 0), (2047, 0),                # 4 warps a row, 4-byte loads
+    (2048, 0), (4100, 0),               # ... 16-byte loads, 1 and 2 rounds
+    (2048, 1),                          # ... a view one word off: 4-byte
+])
+@pytest.mark.parametrize("n", [1, 9])   # 9: the last block's rows part-used
+@pytest.mark.parametrize("lead,shared", [((), False), ((4,), False),
+                                         ((4,), True)])
+def test_cuda_spike_process_paths_equal_plain(cuda, lead, shared, n, words,
+                                              offset, dependent):
+    """Each path of the SPU kernel equals its plain version; as a
+    dependent, it reads the bank only after the kernel that wrote it
+    (an elementwise PyTorch kernel, launched just before) has ended."""
+    rng = np.random.default_rng(words + 7 * offset + n + len(lead))
+    bank_lead = () if shared else lead
+    src = _words_at(rng, bank_lead + (n, words), offset, cuda)
+    pre = _words_at(rng, lead + (words,), offset, cuda)
+    flip = int(rng.integers(1, 2**31))
+    weights = torch.empty_like(src)
+    if offset:                              # keep the bank's odd base
+        weights = _words_at(rng, bank_lead + (n, words), offset, cuda)
+    torch.bitwise_xor(src, flip, out=weights)
+    launches = ops.spike_process.launches
+    got = ops.spike_process(pre, weights, dependent=dependent)
+    torch.cuda.synchronize()
+    assert ops.spike_process.launches == launches + 1
+    want = ops.spike_process(pre, weights, backend="ref")
+    _equal_all((got,), (want,))
+    assert got.shape == lead + (n,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dependent", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("total", [1, 3, 4, 40, 1280, 4096, 4097, 9001])
+def test_cuda_lif_step_paths_equal_plain(cuda, total, offset, dependent):
+    """The NU kernel at its grid's edges (a lone neuron, part of a warp,
+    a last block of one or of part of a warp) and on a view one element
+    off; int32 wraparound of v + count as the plain version has it.  As
+    a dependent it reads count only after the kernel that wrote it."""
+    rng = np.random.default_rng(total + offset)
+    v_np = rng.integers(0, 300, total + offset).astype(np.int32)
+    c_np = rng.integers(-50, 120, total + offset).astype(np.int32)
+    v_np[offset], c_np[offset] = 2**31 - 5, 7   # v + count wraps in int32
+    v = torch.from_numpy(v_np).to(cuda)[offset:]
+    c = torch.from_numpy(c_np).to(cuda)[offset:]
+    count = torch.empty_like(c)
+    torch.add(c, 0, out=count)
+    launches = ops.lif_step.launches
+    got = ops.lif_step(v, count, 100, 3, dependent=dependent)
+    torch.cuda.synchronize()
+    assert ops.lif_step.launches == launches + 1
+    _equal_all(got, ops.lif_step(v, count, 100, 3, backend="ref"))
+    if total > 40:
+        assert got[1].any() and not got[1].all()
+
+
+def _chain_window(o, wins, dependent, fused):
+    """``len(wins)`` cycles from ``o``'s state: the fused step, or
+    ``snn.sp -> + teach -> snn.nu -> snn.su`` (the SU where ``o``
+    trains), every launch after the first a programmatic dependent
+    where ``dependent``.  Returns (bank, v, LFSR, raster)."""
+    from repro_torch.core import rvsnn
+    from repro_torch.core.lif import LIFParams
+    from repro_torch.core.stdp import STDPParams
+
+    kw, train = o["kw"], o["train"]
+    rf = rvsnn.SnnRegFile(spike=wins[0], v=o["v"], lfsr=o["lanes"],
+                          weights=o["weights"])
+    lif = LIFParams(kw["threshold"], kw["leak"])
+    su = STDPParams(kw["w_exp"], kw["gain"], kw["n_syn"], o["ltp"])
+    raster = []
+    for t, words in enumerate(wins):
+        dep = dependent and t > 0
+        if fused:
+            rf, fired = rvsnn.snn_step(rf, words, lif, su if train else None,
+                                       o["teach"], dependent=dep)
+        else:
+            rf = rvsnn.snn_ls(rf, words)
+            counts = rvsnn.snn_sp(rf, dependent=dep)
+            if o["teach"] is not None:
+                counts = counts + o["teach"]
+            rf, fired = rvsnn.snn_nu(rf, counts, lif, dependent=dependent)
+            if train:
+                rf = rvsnn.snn_su(rf, fired, su, dependent=dependent)
+        raster.append(fired)
+    return rf.weights, rf.v, rf.lfsr, torch.stack(raster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,shared,n,n_in,train", [
+    ((4,), False, 10, 784, True),        # the trainer's parallel cycle
+    ((32,), True, 40, 784, False),       # serving: one shared bank, SU idle
+    ((), False, 37, 65536, True),        # long rows
+])
+def test_cuda_chain_graph_dependent_equals_serial(cuda, lead, shared, n,
+                                                  n_in, train):
+    """The unfused chain's cycles recorded as one CUDA graph with
+    dependent launches leave the same bank, v, LFSR and raster as the
+    chain launched serially, in a graph and outside one, and as the
+    fused step's graph; recording counts no launch."""
+    weights, _, v, lanes, teach, ltp, kw = _step_operands(
+        n + len(lead), lead, n, n_in, cuda, shared)
+    rng = np.random.default_rng(n)
+    wins = as_words(_sparse_windows(rng, 24, lead[0] if lead else 1,
+                                    weights.shape[-1]), cuda)
+    if not lead:
+        wins = wins[:, 0]
+    o = dict(weights=weights, v=v, lanes=lanes, ltp=ltp, kw=kw, train=train,
+             teach=teach if train else None)
+    eager = _chain_window(o, wins, False, False)
+    out = {}
+    for fused in (False, True):
+        for dependent in (False, True):
+            _chain_window(o, wins, dependent, fused)      # warm-up
+            before = ops.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                res = _chain_window(o, wins, dependent, fused)
+            assert ops.launch_counts() == before
+            graph.replay()
+            torch.cuda.synchronize()
+            out[(fused, dependent)] = [x.clone() for x in res]
+            del graph
+    for got in out.values():
+        _equal_all(got, eager)
+    assert eager[3].any() and not eager[3].all()
+
+
 @pytest.mark.gpu
 def test_cuda_step_wrappers_reject_what_the_kernels_do_not_take(cuda):
     weights, pre, v, lanes, teach, ltp, kw = _step_operands(

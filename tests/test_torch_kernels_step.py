@@ -101,6 +101,52 @@ def test_lif_step_matches_jax(n, threshold, leak, backend):
     assert got[1].any() and not got[1].all()
 
 
+# Word widths at the edges of the CUDA SPU kernel's paths: rows of up to
+# 128 words in a warp's registers (25, 128), longer rows 4 warps each
+# (129, 2,047 with 4-byte loads; 2,048 with 16-byte loads, one round).
+SPU_WIDTHS = [25, 128, 129, 2047, 2048]
+
+
+@pytest.mark.parametrize("lead,shared", [((), False), ((1,), False),
+                                         ((4,), False), ((4,), True)])
+@pytest.mark.parametrize("n", [1, 9])
+@pytest.mark.parametrize("w", SPU_WIDTHS)
+def test_spike_process_edges_match_jax(w, n, lead, shared):
+    """The SPU op at each kernel path's edge widths, n not a multiple of
+    4 or 8, one stream or B streams against a bank each or one shared:
+    each stream equals the JAX package's op on it alone, ``ref`` and
+    ``interp``."""
+    rng = np.random.default_rng(w + n + len(lead) + shared)
+    weights = _words(rng, (() if shared else lead) + (n, w))
+    pre = _words(rng, lead + (w,))
+    got = ops.spike_process(*_port(pre, weights))
+    assert got.shape == lead + (n,)
+    for i in range(lead[0] if lead else 1):
+        one = (lambda x: x[i]) if lead else (lambda x: x)
+        bank = weights if shared or not lead else weights[i]
+        for backend in JAX_BACKENDS:
+            want = jops.spike_process(jnp.asarray(one(pre)),
+                                      jnp.asarray(bank), backend=backend)
+            _assert_equal(one(got), want)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("total", [1, 3, 4, 4097])
+def test_lif_step_totals_match_jax(total, backend):
+    """The NU op at sizes a kernel's grid has edges at (a lone neuron, a
+    part of a warp, 4,097 neurons: a last block of one), int32
+    wraparound of v + count included."""
+    rng = np.random.default_rng(total)
+    v = rng.integers(0, 300, total).astype(np.int32)
+    c = rng.integers(-50, 120, total).astype(np.int32)
+    v[0], c[0] = 2**31 - 5, 7               # v + count wraps in int32
+    got = ops.lif_step(*_port(v, c), 100, 3)
+    want = jops.lif_step(jnp.asarray(v), jnp.asarray(c), 100, 3,
+                         backend=backend)
+    _assert_equal(got, want)
+    assert bool(got[1][0]) is False         # wrapped below the threshold
+
+
 # Word widths that pick each path of the CUDA SU kernel: rows of up to
 # 128 words in a warp's registers (1, 25, 128), longer rows a block each
 # with a shared-memory stash (129, 4,096; 4,096 takes 16-byte copies).
@@ -326,3 +372,38 @@ def test_snn_step_is_one_fused_launch(monkeypatch):
         rf, fired = rvsnn.snn_step(rf, rf.spike, lp, sp if t % 2 else None)
     assert calls == ["fused_snn_step"] * 4
     assert fired.shape == (3, 12)
+
+
+def test_rvsnn_program_with_dependent_launches_matches_jax():
+    """Eight cycles of ``snn.ls -> snn.sp -> + teach -> snn.nu ->
+    snn.su``, every instruction after the first cycle launched as a
+    dependent (``dependent`` is ignored by the plain versions), equal bit
+    for bit to the JAX package's instructions and to ``snn.step``."""
+    rf, jrf = _regfiles(21)
+    fused = rf
+    rng = np.random.default_rng(21)
+    spikes = _words(rng, (8, 25))
+    teach = rng.integers(-300, 100, 12).astype(np.int32)
+    tt, jt = torch.from_numpy(teach), jnp.asarray(teach)
+    lp, jlp = lif.lif_params(200, 5), jlif.lif_params(200, 5)
+    sp, jsp = stdp.stdp_params(784, 128, 4, 64), jstdp.stdp_params(784, 128,
+                                                                   4, 64)
+    fired_any = False
+    for t in range(8):
+        dep = t > 0
+        words = as_words(spikes[t])
+        rf = rvsnn.snn_ls(rf, words)
+        counts = rvsnn.snn_sp(rf, dependent=dep) + tt
+        rf, fired = rvsnn.snn_nu(rf, counts, lp, dependent=dep)
+        rf = rvsnn.snn_su(rf, fired, sp, dependent=dep)
+        jrf = jrvsnn.snn_ls(jrf, jnp.asarray(spikes[t]))
+        jrf, jfired = jrvsnn.snn_nu(jrf, jrvsnn.snn_sp(jrf) + jt, jlp)
+        jrf = jrvsnn.snn_su(jrf, jfired, jsp)
+        fused, fused_fired = rvsnn.snn_step(fused, words, lp, sp, tt,
+                                            dependent=dep)
+        _assert_equal(tuple(rf) + (fired,), tuple(jrf) + (jfired,))
+        assert torch.equal(fired, fused_fired)
+        fired_any |= bool(fired.any())
+    for a, b in zip(rf, fused):
+        assert torch.equal(a, b)
+    assert fired_any

@@ -77,7 +77,42 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    and replayed, traces a short step-path run under ``torch.profiler``
    (the card's busy share), and runs ``launch/quickstart.py`` on the
    card.
-8. The LM slice: both flash kernels' builds checked (ptxas's line for
+8. The serving stack, at the paper's configuration (784-40, threshold
+   192, leak 16, T 72, ``max_batch`` 32) on the card, with the launch
+   counts set to 0 before and read after its in-process parts (printed,
+   and as ``stack_launches`` in the kernels' JSON): (a) one ragged list
+   (T 24 to 72, every fifth request pre-packed) through a window plan
+   and a step plan (``cycle_backend="step"``: ``fused_snn_step``
+   launches required), the same statuses and counts, each equal to the
+   plain oracle; (b) a seeded ``FaultInjector`` storm (launch failures,
+   corrupted counts, stalls): every request terminal, every SERVED count
+   equal to the oracle, ``retried``, ``degraded`` and ``canary_checks``
+   above 0, ``per_status()`` printed; (c) train-while-serving: an
+   ``SNNWeightRefresher`` over 256 digits (one refresh a step, 4 cycles,
+   the stream kernel training each candidate), a ``state_dir``, a
+   ``FaultSpec`` that corrupts a candidate (rejected at the fingerprint
+   gate), at least one promotion, counts exact under the version each
+   batch pinned, a second engine over the ``state_dir`` restoring the
+   newest version (same fingerprint); ms per refresh cycle printed;
+   (d) both committed load traces (``smoke_50k``; ``overload_50k`` at 5x
+   with ``--overload --slowdown-p 0.02``) replayed twice on the virtual
+   clock through the engine ``launch/loadgen.py`` builds: per-status
+   totals, histogram buckets and a SHA-256 over every SERVED request's
+   counts in rid order bit-identical between the two runs and equal to
+   the same replay through the plain engine on the CPU (a process of its
+   own, run beside (a)-(c)); the journal's cost, 10,000 rows of the smoke
+   trace with and without a journal (two WAL fsyncs and one ledger fsync
+   a step), ms a step and a fsync printed; (e) ``launch/serve.py --chaos
+   --chaos-crashes 3`` on a 4,000-request trace, its children on the card
+   (``os._exit(73)`` at each crash; run beside (a)-(d)): exit 0 and the
+   exactly-once audit; (f), once no other process of the phase is left,
+   ``launch/loadgen.py --mode wall`` at the paper's width (20,000
+   Poisson requests at 20,000 requests/s, SLO 50 ms), then ``--sweep 1000
+   64000 --slo-floor 0.99``: offered and achieved rate, latency from the
+   intended arrival (p50/p99/p99.9), attainment and the sustained rate
+   printed, not gated, and the card's busy share of the replay traced
+   under ``torch.profiler``.  Prints the phase's wall time.
+9. The LM slice: both flash kernels' builds checked (ptxas's line for
    each head dim, no spills; tensor-core instructions counted in the
    SASS, ``cuobjdump -sass``: ``HMMA`` in the float32 kernel, ``HGMMA``
    in the bfloat16 one), then the flash-attention kernels
@@ -112,7 +147,7 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    magnitude with the same greedy token, and 8 decode steps after a
    600-token prefill (the 512-slot rings wrap) match the prefill logits
    of the prompt plus the tokens so far within the same tolerance.
-9. Prints the kernels' JSON line, then, last,
+10. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
@@ -1486,6 +1521,457 @@ def phase_quickstart() -> None:
         fail(f"quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
 
 
+# --- the serving stack: step plans, faults, refresh, journal, load ---------
+
+# the load harness's committed traces, replayed in part (d)
+STACK_TRACES = (("smoke_50k", 1.0, False, 0.0),
+                ("overload_50k", 5.0, True, 0.02))
+CPU_REPLAY_FLAG = "--stack-cpu-replay"
+
+
+def stack_setup(n_req: int, seed: int = 0):
+    """The paper's configuration (784-40, threshold 192, leak 16, T 72,
+    max_batch 32), its weights, class map and ``n_req`` ragged digit
+    requests (T from 24 to 72, every fifth one pre-packed)."""
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A
+    from repro_torch.core.encoder import (encode_windows_host,
+                                          quantize_intensities)
+    from repro_torch.core.stdp import init_weights
+    from repro_torch.data.digits import make_digits
+    from repro_torch.engine import plan_from_config
+
+    cfg = dataclasses.replace(WENQUXING_22A, encode="kernel")
+    plan = dataclasses.replace(plan_from_config(cfg), max_batch=32)
+    weights = init_weights(cfg.n_neurons, cfg.words, dense=False)
+    neuron_class = np.tile(np.arange(cfg.n_classes), cfg.n_blocks)
+    imgs, _ = make_digits(n_req, seed=seed)
+    inten = quantize_intensities(imgs).numpy()
+    rows = []
+    for i in range(n_req):
+        t = 24 + 8 * (i % 7)
+        if i % 5 == 4:
+            win = encode_windows_host(0x5A + i, torch.from_numpy(inten[i])[
+                None], t, cfg.words)[0]
+            rows.append(dict(rid=i, window=win.numpy().view(np.uint32)))
+        else:
+            rows.append(dict(rid=i, intensities=inten[i], n_steps=t))
+    return cfg, plan, weights, neuron_class, rows
+
+
+def stack_oracle(bank, reqs, plan) -> np.ndarray:
+    """The plain pre-packed version's counts for every request, on the
+    CPU under ``bank``: one launch over all of them, windows padded."""
+    from repro_torch.core.bitpack import as_words
+    from repro_torch.core.encoder import encode_windows_host
+    from repro_torch.kernels import ops
+
+    words = bank.shape[1]
+    t_max = max(r.window.shape[0] if r.window is not None else r.n_steps
+                for r in reqs)
+    wins = np.zeros((len(reqs), t_max, words), np.uint32)
+    for i, r in enumerate(reqs):
+        w = (r.window if r.window is not None else encode_windows_host(
+            r.seed, torch.from_numpy(r.intensities)[None], r.n_steps,
+            words)[0].numpy().view(np.uint32))
+        wins[i, :w.shape[0]] = w
+    return ops.infer_window_batch(as_words(bank).cpu(), as_words(wins),
+                                  threshold=plan.threshold, leak=plan.leak,
+                                  backend="ref").numpy()
+
+
+def replay_trace(name: str, scale: float, overload: bool, slowdown_p: float,
+                 device: str) -> dict:
+    """One virtual-clock replay of a committed trace through the engine
+    ``launch/loadgen.py`` builds (``--scale``, ``--overload``,
+    ``--slowdown-p``): per-status totals, both histograms' buckets and a
+    SHA-256 over every SERVED request's counts in rid order."""
+    import hashlib
+
+    from repro_torch.launch import loadgen
+    from repro_torch.loadgen import WorkloadSpec, read_trace, scale_rows
+    from repro_torch.loadgen.runner import run_rows
+
+    path = str(ROOT / "benchmarks" / "traces" / f"{name}.json")
+    argv = ["--trace", path, "--mode", "virtual", "--device", device]
+    if overload:
+        argv.append("--overload")
+    if slowdown_p:
+        argv += ["--slowdown-p", str(slowdown_p)]
+    args = loadgen.build_parser().parse_args(argv)
+    header, rows = read_trace(path)
+    workload = WorkloadSpec.from_dict(header["workload"])
+    args.overload_base_rps = float(header["arrivals"]["rate_rps"])
+    if scale != 1.0:
+        rows = scale_rows(rows, scale)
+    eng = loadgen.make_engine(args, workload, "virtual")
+    reqs = []
+    submit = eng.submit
+
+    def keep(req):
+        reqs.append(req)
+        return submit(req)
+    eng.submit = keep
+    t0 = time.perf_counter()
+    rep = run_rows(eng, workload, rows, slo_ms=args.slo_ms,
+                   keep_payloads=True)
+    wall = time.perf_counter() - t0
+    h = hashlib.sha256()
+    for r in sorted(reqs, key=lambda r: r.rid):
+        if r.status == "SERVED":
+            h.update(np.ascontiguousarray(r.counts, np.int32).tobytes())
+    return {"per_status": eng.per_status(), "report": rep.to_dict(),
+            "service_hist": eng.service_hist.to_dict(),
+            "queue_wait_hist": eng.queue_wait_hist.to_dict(),
+            "counts_sha256": h.hexdigest(), "steps": eng.steps,
+            "wall_s": wall}
+
+
+def cpu_replays(out: str) -> None:
+    """Part (d)'s twin on the CPU (a process of its own): every trace
+    replayed through the port's plain engine, written to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(4)
+    res = {name: replay_trace(name, scale, ov, sp, "cpu")
+           for name, scale, ov, sp in STACK_TRACES}
+    Path(out).write_text(json.dumps(res))
+
+
+def check_served(what: str, reqs, want: np.ndarray) -> None:
+    bad = [r.rid for r, w in zip(reqs, want)
+           if r.status == "SERVED" and not np.array_equal(r.counts, w)]
+    if bad:
+        fail(f"{what}: served counts differ from the plain oracle for "
+             f"rids {bad[:8]}")
+
+
+def stack_step_plan(plan, weights, rows) -> None:
+    """(a) One ragged list through a window plan and a step plan."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SNNRequest, SNNServingEngine
+
+    out = {}
+    for name, p in (("window", plan),
+                    ("step", dataclasses.replace(plan, cycle_backend="step",
+                                                 encode="host"))):
+        before = ops.launch_counts()
+        eng = SNNServingEngine(weights, p, device="cuda")
+        t0 = time.perf_counter()
+        reqs = eng.run([SNNRequest(**r) for r in rows])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = (reqs, {k: v - before[k] for k, v in
+                            ops.launch_counts().items() if v - before[k]},
+                     wall, eng)
+    (wreqs, wl, ww, weng), (sreqs, sl, sw, seng) = out["window"], out["step"]
+    if [r.status for r in sreqs] != [r.status for r in wreqs] or any(
+            r.status != "SERVED" for r in sreqs):
+        fail("(a) step and window plans gave different statuses: "
+             f"{collections.Counter(r.status for r in sreqs)} vs "
+             f"{collections.Counter(r.status for r in wreqs)}")
+    want = stack_oracle(weights, sreqs, plan)
+    check_served("(a) step plan", sreqs, want)
+    check_served("(a) window plan", wreqs, want)
+    if not sl.get("fused_snn_step"):
+        fail(f"(a) the step plan launched {sl}")
+    print(f"stack (a) step plan: {len(rows)} requests (T 24-72, "
+          f"{sum('window' in r for r in rows)} pre-packed) SERVED on both "
+          f"plans, counts equal to each other and to the plain oracle; "
+          f"window plan {weng.batches} batches {ww} s, "
+          f"launches {wl}; step plan {seng.batches} batches {sw} s, "
+          f"launches {sl}", flush=True)
+
+
+def stack_fault_storm(plan, weights, neuron_class, rows) -> None:
+    """(b) A seeded storm of launch failures, corrupted counts and
+    stalls on the card."""
+    from repro_torch.serving import (FaultInjector, FaultSpec, SNNRequest,
+                                     SNNServingEngine, SNNServingPolicy)
+
+    inj = FaultInjector(FaultSpec(p_launch_error=0.25, p_corrupt=0.5,
+                                  p_stall=0.2, stall_ms=1.0, error_burst=2,
+                                  seed=0))
+    eng = SNNServingEngine(weights, plan, neuron_class=neuron_class,
+                           policy=SNNServingPolicy(max_retries=2,
+                                                   canary_every=1,
+                                                   reprobe_after=2),
+                           on_launch=inj, device="cuda")
+    reqs = eng.run([SNNRequest(**r) for r in rows])
+    if not all(r.terminal for r in reqs):
+        fail("(b) a request did not reach a terminal status")
+    check_served("(b) fault storm", reqs,
+                 stack_oracle(weights, reqs, plan))
+    st = eng.stats()
+    for key in ("retried", "degraded", "canary_checks"):
+        if not st[key]:
+            fail(f"(b) the storm counted {key}=0 ({inj.stats()})")
+    print(f"stack (b) fault storm: per_status {eng.per_status()}; retried "
+          f"{st['retried']}, degraded {st['degraded']}, integrity_failures "
+          f"{st['integrity_failures']}, canary_checks {st['canary_checks']}"
+          f" (failures {st['canary_failures']}), breakers "
+          f"{st['breaker_states']}; injector {inj.stats()}", flush=True)
+
+
+def stack_refresh(cfg, plan, weights, neuron_class, rows) -> None:
+    """(c) Train-while-serving on the card, with a state_dir and a
+    corrupted candidate."""
+    import tempfile
+
+    from repro_torch.core.encoder import quantize_intensities
+    from repro_torch.data.digits import make_digits
+    from repro_torch.serving import (FaultInjector, FaultSpec,
+                                     SNNRefreshPolicy, SNNRequest,
+                                     SNNServingEngine, SNNServingPolicy,
+                                     SNNWeightRefresher)
+
+    ref_imgs, ref_labels = make_digits(256, seed=1)
+    probe_imgs, probe_labels = make_digits(32, seed=2)
+    rf = SNNWeightRefresher(
+        plan, quantize_intensities(ref_imgs).numpy(), ref_labels,
+        n_classes=cfg.n_classes,
+        probe_intensities=quantize_intensities(probe_imgs).numpy(),
+        probe_labels=probe_labels, neuron_class=neuron_class,
+        n_steps=cfg.n_steps, teach_pos=cfg.teach_pos,
+        teach_neg=cfg.teach_neg, device="cuda",
+        policy=SNNRefreshPolicy(refresh_every=1, probe_size=32,
+                                refresh_samples=32))
+    inj = FaultInjector(FaultSpec(p_refresh_corrupt=0.3, seed=2))
+    with tempfile.TemporaryDirectory() as sd:
+        eng = SNNServingEngine(weights, plan, neuron_class=neuron_class,
+                               refresher=rf, state_dir=sd, keep_versions=64,
+                               policy=SNNServingPolicy(canary_every=2),
+                               on_launch=inj, device="cuda")
+        cycle_ms = []
+        cycle = eng._refresh_cycle
+
+        def timed_cycle():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cycle()
+            torch.cuda.synchronize()
+            cycle_ms.append(1e3 * (time.perf_counter() - t0))
+        eng._refresh_cycle = timed_cycle
+        reqs = eng.run([SNNRequest(**r) for r in rows])
+        st = eng.stats()
+        if st["versions_promoted"] < 1 or st["refresh_corrupt"] < 1:
+            fail(f"(c) promoted {st['versions_promoted']}, rejected "
+                 f"{st['refresh_corrupt']} corrupt candidates "
+                 f"({list(eng.refresh_events)})")
+        if st["refresh_corrupt"] != inj.refresh_corruptions:
+            fail("(c) a corrupted candidate passed the fingerprint gate")
+        if not all(r.status == "SERVED" for r in reqs) or \
+                st["version_violations"]:
+            fail(f"(c) statuses {eng.per_status()}, version violations "
+                 f"{st['version_violations']}")
+        for v in sorted({r.served_version for r in reqs}):
+            mine = [r for r in reqs if r.served_version == v]
+            check_served(f"(c) version {v}", mine, stack_oracle(
+                eng.store.get(v).weights, mine, plan))
+        again = SNNServingEngine(np.zeros_like(weights.numpy()), plan,
+                                 state_dir=sd, device="cuda")
+        if (again.store.serving.version != eng.store.serving.version
+                or again.store.serving.fingerprint
+                != eng.store.serving.fingerprint):
+            fail("(c) a second engine over the state_dir restored version "
+                 f"{again.store.serving.version}, not "
+                 f"{eng.store.serving.version}")
+    print(f"stack (c) train-while-serving: {len(rows)} requests over "
+          f"versions {sorted({r.served_version for r in reqs})}, counts "
+          f"equal to each version's plain oracle; refresh_runs "
+          f"{st['refresh_runs']}, promoted {st['versions_promoted']}, "
+          f"rejected {st['versions_rejected']} (corrupt "
+          f"{st['refresh_corrupt']}, probe gate {st['refresh_rejected']}), "
+          f"rollbacks {st['rollbacks']}, probe accuracy "
+          f"{rf.probe(weights)} -> {st['probe_accuracy']}; ms per refresh "
+          f"cycle {cycle_ms}; restart restored version "
+          f"{again.store.serving.version} (same fingerprint)", flush=True)
+
+
+def stack_journal_cost(tmp: Path, n_rows: int = 10_000) -> None:
+    """(d) The journal's cost on the card: the first ``n_rows`` of the
+    smoke trace on the virtual clock with and without ``--journal-dir``
+    (group commit: two WAL fsyncs and one ledger fsync a serving step),
+    host clock around each run; the journaled run must end with the same
+    per-status totals and a ledger entry for every row."""
+    from repro_torch.launch import loadgen
+    from repro_torch.loadgen import WorkloadSpec, read_trace
+    from repro_torch.loadgen.runner import run_rows
+    from repro_torch.serving import RequestJournal
+
+    path = str(ROOT / "benchmarks" / "traces" / "smoke_50k.json")
+    header, rows = read_trace(path)
+    rows = rows[:n_rows]
+    workload = WorkloadSpec.from_dict(header["workload"])
+    runs = {}
+    for name, extra in (("bare", []),
+                        ("journaled", ["--journal-dir", str(tmp / "jcost")])):
+        args = loadgen.build_parser().parse_args(
+            ["--trace", path, "--device", "cuda", *extra])
+        eng = loadgen.make_engine(args, workload, "virtual")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_rows(eng, workload, rows)
+        eng.close()
+        runs[name] = (time.perf_counter() - t0, eng)
+    (bare_s, bare), (jour_s, jour) = runs["bare"], runs["journaled"]
+    ledger = RequestJournal(tmp / "jcost").read_ledger()
+    if (jour.per_status() != bare.per_status()
+            or sorted(r["rid"] for r in ledger) != list(range(n_rows))):
+        fail(f"(d) the journaled run ended {jour.per_status()} with "
+             f"{len(ledger)} ledger entries, the bare run "
+             f"{bare.per_status()}")
+    st = jour.stats()
+    extra_ms = 1e3 * (jour_s - bare_s)
+    print(f"stack (d) journal cost: {n_rows} rows in {bare.steps} steps; "
+          f"bare {bare_s} s ({1e3 * bare_s / bare.steps} ms a step), "
+          f"journaled {jour_s} s ({1e3 * jour_s / jour.steps} ms a step), "
+          f"{extra_ms / jour.steps} ms a step more; {st['journal_syncs']} "
+          f"WAL fsyncs and {st['journal_records']} records "
+          f"({extra_ms / st['journal_syncs']} ms a WAL fsync with its "
+          f"ledger share), {st['journal_snapshots']} snapshots", flush=True)
+
+
+def stack_chaos(tmp: Path) -> subprocess.Popen:
+    """(e), started: the kill-restart chaos harness on the card over a
+    4,000-request trace, as a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    trace = tmp / "chaos_trace.json"
+    subprocess.run([sys.executable, "-m", "repro_torch.launch.loadgen",
+                    "--record", str(trace), "--compact", "--n", "4000",
+                    "--rate", "20000"], check=True, env=env, cwd=ROOT,
+                   capture_output=True, timeout=120)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "wenquxing-snn", "--chaos", "--chaos-crashes", "3", "--trace",
+         str(trace), "--state-dir", str(tmp / "chaos")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+
+
+def stack_load() -> None:
+    """(f) Wall-clock load at the paper's width: one replay of 20,000
+    Poisson requests at 20,000 requests/s, then the sweep, then the
+    card's busy share of a traced second of the same stream."""
+    import contextlib as ctx
+    import io
+
+    from repro_torch.launch import loadgen
+    from repro_torch.loadgen import generate_rows
+
+    common = ["--mode", "wall", "--inputs", "784", "--neurons", "40",
+              "--threshold", "192", "--leak", "16", "--t-choices", "72",
+              "--max-batch", "32", "--slo-ms", "50", "--n", "20000",
+              "--device", "cuda"]
+    for what, argv in (("replay", common + ["--rate", "20000"]),
+                       ("sweep", common + ["--sweep", "1000", "64000",
+                                           "--slo-floor", "0.99"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with ctx.redirect_stdout(buf):
+            status = loadgen.main(argv)
+        for line in buf.getvalue().splitlines():
+            print(f"stack (f) {what}: {line} (wall "
+                  f"{time.perf_counter() - t0} s)", flush=True)
+        if what == "replay" and status:
+            print(f"stack (f) replay: loadgen exited {status} (printed, "
+                  "not gated)", flush=True)
+    args = loadgen.build_parser().parse_args(common + ["--rate", "20000"])
+    arrivals, workload = loadgen.build_specs(args)
+    rows = generate_rows(arrivals, workload)
+    wall_us, share, top = busy_share(
+        lambda: loadgen.run_once(args, workload, rows))
+    print(f"stack (f) traced second: {len(rows)} requests in {wall_us} us "
+          f"under torch.profiler, card busy {share} of it; device work: "
+          f"{top}", flush=True)
+
+
+def phase_serving_stack() -> dict:
+    """Phase 8: the serving stack on the card, parts (a)-(f); returns
+    the launch counts of its in-process parts."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    cfg, plan, weights, neuron_class, rows = stack_setup(160)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stack_"))
+    procs = []
+    try:
+        # the CPU's half of (d) and all of (e) run in processes of their
+        # own beside (a)-(c)
+        cpu_out = tmp / "cpu_replays.json"
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), CPU_REPLAY_FLAG,
+             str(cpu_out)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+        chaos = stack_chaos(tmp)
+        procs.append(chaos)
+        ops.reset_launch_counts()
+        stack_step_plan(plan, weights, rows[:96])
+        stack_fault_storm(plan, weights, neuron_class, rows)
+        stack_refresh(cfg, plan, weights, neuron_class, rows[:160])
+
+        # (d) the committed traces, each replayed twice on the card
+        card = {}
+        for name, scale, ov, sp in STACK_TRACES:
+            a = replay_trace(name, scale, ov, sp, "cuda")
+            b = replay_trace(name, scale, ov, sp, "cuda")
+            for k in ("per_status", "service_hist", "queue_wait_hist",
+                      "counts_sha256", "report"):
+                if a[k] != b[k]:
+                    fail(f"(d) {name}: two replays on the card differ in "
+                         f"{k}")
+            card[name] = a
+        out, _ = procs[0].communicate(timeout=900)
+        if procs[0].returncode:
+            fail(f"(d) the CPU replays exited {procs[0].returncode}: "
+                 f"{out[-2000:]}")
+        cpu = json.loads(cpu_out.read_text())
+        for name, scale, ov, sp in STACK_TRACES:
+            a, c = card[name], cpu[name]
+            for k in ("per_status", "service_hist", "queue_wait_hist",
+                      "counts_sha256", "report"):
+                if a[k] != c[k]:
+                    fail(f"(d) {name}: the card's replay differs from the "
+                         f"CPU plain engine's in {k}")
+            rep = a["report"]
+            print(f"stack (d) {name} x{scale}{' --overload' if ov else ''}"
+                  f"{f' --slowdown-p {sp}' if sp else ''}: replayed twice "
+                  f"on the card, bit-identical, and equal to the CPU plain "
+                  f"engine's replay (per_status {a['per_status']}, "
+                  f"histogram buckets, counts sha256 "
+                  f"{a['counts_sha256'][:16]}); steps {a['steps']}, wall "
+                  f"{a['wall_s']} s on the card vs {c['wall_s']} s on the "
+                  f"CPU; virtual achieved_rps {rep['achieved_rps']}, e2e "
+                  f"p99 {rep['e2e_ms_p99']} ms, attainment "
+                  f"{rep['slo_attainment']}", flush=True)
+
+        stack_journal_cost(tmp)
+
+        # (e) the chaos harness's result; it has ended before (f) starts,
+        # so no other process shares the card or the host with (f)
+        out, _ = chaos.communicate(timeout=900)
+        for line in out.splitlines():
+            if line.startswith(("chaos", "loadgen: resuming")):
+                print(f"stack (e) {line}", flush=True)
+        if chaos.returncode or "chaos-audit: ok" not in out:
+            fail(f"(e) the chaos harness exited {chaos.returncode}: "
+                 f"{out[-3000:]}")
+
+        # (f) wall-clock load at the paper's width, measured alone
+        stack_load()
+        launches = ops.launch_counts()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"stack: launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return launches
+
+
 # --- the LM slice: flash attention and gemma3-1b served at full width -------
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
@@ -1661,7 +2147,7 @@ def check_flash_build() -> None:
 
 
 def phase_flash_kernel() -> dict:
-    """Phase 8a: the bf16 kernel's build checked, then the flash kernels
+    """Phase 9a: the bf16 kernel's build checked, then the flash kernels
     against their plain version on the card at each shape in both dtypes,
     then timed (each dtype by its own kernel's profiler records) beside
     the bound, the plain version and SDPA."""
@@ -1754,7 +2240,7 @@ def busy_share(fn) -> tuple[float, float, str]:
 
 
 def phase_lm_slice():
-    """Phase 8b: gemma3-1b at full width in bfloat16 served on the card,
+    """Phase 9b: gemma3-1b at full width in bfloat16 served on the card,
     the launch counts set to 0 before and read after, every plain
     attention function watched.  Returns (launches, model)."""
     from repro_torch.configs.base import get_config
@@ -1848,7 +2334,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_lm_correctness(model) -> None:
-    """Phase 8c: the slice's own bf16 model, the kernel's prefill against
+    """Phase 9c: the slice's own bf16 model, the kernel's prefill against
     the plain attention's: the same greedy token, and within twice what
     bf16 itself moves the logits (the plain bf16 prefill against the
     float32 one).
@@ -1978,7 +2464,11 @@ def main() -> None:
     phase_train_trace(*preprocessed_digits(16, seed=3), "step")
     phase_quickstart()
 
-    # phase 8: the LM slice (flash attention), gemma3-1b at full width
+    # phase 8: the serving stack (step plans, faults, refresh, journal,
+    # load harness) at the paper's width
+    stack_launches = phase_serving_stack()
+
+    # phase 9: the LM slice (flash attention), gemma3-1b at full width
     flash = phase_flash_kernel()
     lm_launches, model = phase_lm_slice()
     phase_lm_correctness(model)
@@ -2016,6 +2506,7 @@ def main() -> None:
                if k == kname and other != shape}}
         if launches is serve_launches:
             entry["train_launches"] = train_launches[kname]
+        entry["stack_launches"] = stack_launches[kname]
         if kname == "train_window_batch_encode":
             # the trainer's launches are the stream form: its time per
             # launch of 8 samples leads, the one-sample launch beside it
@@ -2049,6 +2540,7 @@ def main() -> None:
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
             "library_ms": None, "shape": "step-parallel",
             "call_ms": main_t["call_ms"],
+            "stack_launches": stack_launches[kname],
             **{k: main_t[k] for k in GRAPH_KEYS if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by", "ms_cold")
@@ -2059,6 +2551,7 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_PALLAS,
         "launches": lm_launches["flash_attention"],
+        "stack_launches": stack_launches["flash_attention"],
         "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
@@ -2072,4 +2565,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == CPU_REPLAY_FLAG:
+        cpu_replays(sys.argv[2])
+    else:
+        main()

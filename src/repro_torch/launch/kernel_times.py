@@ -14,7 +14,7 @@ four streams; the stream form 8 samples shared by the four) and the
 synthetic "large" (65,536 inputs, 1,000 neurons, the same B; the SPU, NU
 and SU one stream, as phase 3 runs them); phase 3's serving shapes for both serving kernels
 ("paper": B = 32, 784-40, T = 72, ragged lengths; "canary": T = 8;
-"large": B = 16, 65,536 inputs, 1,000 neurons); and phase 8a's six
+"large": B = 16, 65,536 inputs, 1,000 neurons); and phase 9a's six
 flash-attention shapes in float32 and bfloat16.  Each time is the
 profiler's device time per call of the kernels whose name holds one of
 the op's symbols (a kernel renamed between two checkouts is named by
@@ -193,7 +193,7 @@ def _operands(shape: str, dev: torch.device) -> dict:
 _SERVING_SHAPES = (("paper", 32, 784, 40, 72, 192, 16),
                    ("canary", 32, 784, 40, 8, 192, 16),
                    ("large", 16, 65536, 1000, 72, 16384, 256))
-# (name, B, Hq, Hkv, D, T, causal, window): chip_smoke.py phase 8a
+# (name, B, Hq, Hkv, D, T, causal, window): chip_smoke.py phase 9a
 _FLASH_SHAPES = (
     ("gemma-global", 1, 4, 1, 256, 2048, True, None),
     ("gemma-local", 1, 4, 1, 256, 2048, True, 512),

@@ -1055,3 +1055,168 @@ def test_cuda_lm_serving_equals_the_cpu_run(cuda, arch):
         assert launches == (cfg.n_layers * len(reqs) if dev == cuda else 0)
         outs[dev.type] = [r.output for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+# --- the serving stack on the card -------------------------------------------
+
+def _stack_rows(n=14, n_in=100, words=4, seed=1):
+    """Ragged intensity requests (T 5 to 16) with some pre-packed windows."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        t = (5, 9, 12, 16)[i % 4]
+        if i % 4 == 1:
+            rows.append(dict(rid=i, window=rng.integers(
+                0, 2**32, (t, words), dtype=np.uint32)
+                & rng.integers(0, 2**32, (t, words), dtype=np.uint32)))
+        else:
+            rows.append(dict(rid=i, intensities=rng.integers(
+                0, 256, (n_in,), dtype=np.uint8), n_steps=t))
+    return rows
+
+
+def _stack_oracle(bank, r, threshold, leak):
+    from repro_torch.core.encoder import encode_windows_host
+    if r.window is not None:
+        win = as_words(r.window[None])
+    else:
+        win = encode_windows_host(r.seed, torch.from_numpy(
+            r.intensities)[None], r.n_steps, bank.shape[1])
+    return ops.infer_window_batch(as_words(bank).cpu(), win,
+                                  threshold=threshold, leak=leak,
+                                  backend="ref")[0].numpy()
+
+
+@pytest.mark.gpu
+def test_cuda_step_plan_serves_like_the_window_plan(cuda):
+    """A step plan on the card serves host-encoded windows through the
+    fused step kernel: the same statuses and counts as a window plan on
+    the card and as the step plan's plain run on the CPU."""
+    from repro_torch.engine import SNNEnginePlan
+    from repro_torch.serving import SNNRequest, SNNServingEngine
+    bank = np.random.default_rng(0).integers(0, 2**32, (20, 4),
+                                             dtype=np.uint32)
+    kw = dict(threshold=40, leak=3, w_exp=None, max_batch=3)
+    runs = {}
+    for name, plan, dev in (
+            ("window", SNNEnginePlan(encode="kernel", **kw), cuda),
+            ("step", SNNEnginePlan(cycle_backend="step", **kw), cuda),
+            ("cpu", SNNEnginePlan(cycle_backend="step", **kw), "cpu")):
+        ops.reset_launch_counts()
+        eng = SNNServingEngine(bank, plan, device=dev)
+        reqs = eng.run([SNNRequest(**r) for r in _stack_rows()])
+        runs[name] = (reqs, ops.launch_counts())
+    step_reqs, launches = runs["step"]
+    assert launches["fused_snn_step"] > 0
+    assert launches["infer_window_batch_encode"] == 0
+    for name in ("window", "cpu"):
+        assert [r.status for r in runs[name][0]] == \
+            [r.status for r in step_reqs]
+    for r, w, c in zip(step_reqs, runs["window"][0], runs["cpu"][0]):
+        assert r.status == "SERVED"
+        np.testing.assert_array_equal(r.counts, w.counts)
+        np.testing.assert_array_equal(r.counts, c.counts)
+        np.testing.assert_array_equal(r.counts,
+                                      _stack_oracle(bank, r, 40, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encode", ["kernel", "host"])
+def test_cuda_fault_storm_serves_only_exact_counts(cuda, encode):
+    """A seeded storm on the card (launch failures past the retry budget,
+    corrupted counts, stalls): every request terminal, every SERVED count
+    equal to the plain oracle, recovery counters nonzero."""
+    from repro_torch.engine import SNNEnginePlan
+    from repro_torch.loadgen.runner import make_clock
+    from repro_torch.serving import (FaultInjector, FaultSpec, SNNRequest,
+                                     SNNServingEngine, SNNServingPolicy)
+    bank = np.random.default_rng(2).integers(0, 2**32, (20, 4),
+                                             dtype=np.uint32)
+    inj = FaultInjector(FaultSpec(p_launch_error=0.35, p_corrupt=0.5,
+                                  p_stall=0.2, stall_ms=0.5, error_burst=3,
+                                  seed=11))
+    eng = SNNServingEngine(
+        bank, SNNEnginePlan(threshold=40, leak=3, w_exp=None, max_batch=3,
+                            encode=encode),
+        policy=SNNServingPolicy(max_retries=1, canary_every=2,
+                                reprobe_after=2),
+        on_launch=inj, clock=make_clock("virtual"), device=cuda)
+    reqs = eng.run([SNNRequest(**r) for r in _stack_rows(24, seed=3)])
+    assert all(r.terminal for r in reqs)
+    for r in reqs:
+        if r.status == "SERVED":
+            np.testing.assert_array_equal(r.counts,
+                                          _stack_oracle(bank, r, 40, 3))
+    st = eng.stats()
+    assert st["retried"] > 0 and st["canary_checks"] > 0
+    assert inj.errors > 0 and st["windows_served"] > 0
+    assert st["degraded"] > 0 or encode == "host"
+
+
+@pytest.mark.gpu
+def test_cuda_train_while_serving_equals_the_cpu_run(cuda, tmp_path):
+    """Probe-gated refresh on the card (the stream kernel trains each
+    candidate; the probe and the canary run the serving kernels) with a
+    corrupt candidate: the same promotions, rejections and state_dir
+    bytes as the plain run on the CPU, counts exact under the version
+    each batch pinned, and a second engine over the state_dir restores
+    the newest version."""
+    from repro_torch.engine import SNNEnginePlan
+    from repro_torch.loadgen.runner import make_clock
+    from repro_torch.serving import (FaultInjector, FaultSpec,
+                                     SNNRefreshPolicy, SNNRequest,
+                                     SNNServingEngine, SNNServingPolicy,
+                                     SNNWeightRefresher)
+    n_cls, n_in, t = 4, 64, 16
+    labels = np.arange(64) % n_cls
+    inten = np.zeros((64, n_in), np.uint8)
+    for i, c in enumerate(labels):
+        inten[i, c * 16:(c + 1) * 16] = 200
+    plan = SNNEnginePlan(threshold=24, leak=2, w_exp=128, n_syn=n_in,
+                         encode="kernel", max_batch=4, t_chunk=8)
+    nc = np.tile(np.arange(n_cls), 2)
+    bank = np.random.default_rng(0).integers(0, 2**32, (8, 2),
+                                             dtype=np.uint32)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        ops.reset_launch_counts()
+        rf = SNNWeightRefresher(
+            plan, inten, labels, n_classes=n_cls,
+            probe_intensities=inten[:16], probe_labels=labels[:16],
+            neuron_class=nc, n_steps=t, device=dev,
+            policy=SNNRefreshPolicy(refresh_every=2, probe_size=16,
+                                    refresh_samples=16))
+        sd = tmp_path / dev.type
+        eng = SNNServingEngine(
+            bank, plan, neuron_class=nc, refresher=rf, state_dir=str(sd),
+            keep_versions=64, clock=make_clock("virtual"),
+            policy=SNNServingPolicy(canary_every=2), device=dev,
+            on_launch=FaultInjector(FaultSpec(p_refresh_corrupt=0.3,
+                                              seed=4)))
+        reqs = eng.run([SNNRequest(rid=i, intensities=inten[i], n_steps=t)
+                        for i in range(40)])
+        for r in reqs:
+            assert r.status == "SERVED"
+            ver = eng.store.get(r.served_version)
+            np.testing.assert_array_equal(
+                r.counts, _stack_oracle(ver.weights.cpu(), r, 24, 2))
+        st = eng.stats()
+        st.pop("mean_step_ms"), st.pop("last_step_ms")
+        runs[dev.type] = (st, [r.served_version for r in reqs],
+                          {p.relative_to(sd): p.read_bytes()
+                           for p in sorted(sd.rglob("*")) if p.is_file()},
+                          ops.launch_counts())
+        again = SNNServingEngine(np.zeros((8, 2), np.uint32), plan,
+                                 state_dir=str(sd), device=dev)
+        assert again.store.serving.fingerprint == \
+            eng.store.serving.fingerprint
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card[3]["train_window_batch_encode"] >= card[0]["refresh_runs"] \
+        - card[0]["refresh_failed"] > 0
+    assert card[3]["infer_window_batch_encode"] > 0
+    assert card[3]["infer_window_batch"] > 0
+    st = card[0]
+    assert st["versions_promoted"] >= 1 and st["refresh_corrupt"] >= 1
+    # the card's ladder has no plain rung: one breaker fewer
+    assert st.pop("breaker_states") == cpu[0].pop("breaker_states")[:-1]
+    assert card[:3] == cpu[:3]

@@ -41,7 +41,9 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_serving_stack_loads_no_jax():
     code = ("import sys, repro_torch.serving.snn, repro_torch.launch.serve,"
             " repro_torch.convert, repro_torch.launch.mnist_stdp,"
-            " repro_torch.launch.quickstart, repro_torch.core.network; "
+            " repro_torch.launch.quickstart, repro_torch.core.network,"
+            " repro_torch.launch.loadgen, repro_torch.loadgen.runner,"
+            " repro_torch.checkpoint, repro_torch.serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

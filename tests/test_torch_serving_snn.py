@@ -216,18 +216,48 @@ def test_paper_width_slice_matches_jax():
     assert teng.batches == 1 and teng.canary_checks == 1
 
 
-def test_serving_rejects_what_is_not_ported_and_bad_plans():
+def test_serving_rejects_what_is_not_ported_and_bad_plans(tmp_path):
+    """Every layer of the JAX engine is ported: the engine takes a
+    refresher, a journal, an overload policy, a state_dir and a step
+    plan; what is refused is a bad plan."""
+    from repro_torch.loadgen.runner import make_clock
+    from repro_torch.serving import (OverloadPolicy, SNNRefreshPolicy,
+                                     SNNWeightRefresher)
+
     bank = _bank()
     plan = SNNEnginePlan(**PARAMS)
-    for kw in (dict(refresher=object()), dict(journal_dir="j"),
-               dict(overload=object()), dict(state_dir="s")):
-        with pytest.raises(NotImplementedError):
-            SNNServingEngine(bank, plan, device="cpu", **kw)
+    inten = np.random.default_rng(5).integers(0, 256, (8, N_IN),
+                                              dtype=np.uint8)
+    refresher = SNNWeightRefresher(
+        dataclasses.replace(plan, w_exp=128, n_syn=N_IN), inten,
+        np.arange(8) % 10, n_classes=10, probe_intensities=inten,
+        probe_labels=np.arange(8) % 10, neuron_class=np.arange(N) % 10,
+        n_steps=8, policy=SNNRefreshPolicy(probe_size=8), device="cpu")
+    for kw in (dict(refresher=refresher),
+               dict(journal_dir=str(tmp_path / "j")),
+               dict(overload=OverloadPolicy()),
+               dict(state_dir=str(tmp_path / "s")),
+               dict(clock=make_clock("virtual"))):
+        eng = SNNServingEngine(bank, plan, device="cpu", **kw)
+        reqs = eng.run(_requests(SNNRequest, _payloads()))
+        assert [r.status for r in reqs].count("SERVED") == 11
+        eng.close()
+    assert (tmp_path / "j" / "ledger.log").exists()
+    assert (tmp_path / "s" / "step_0" / "manifest.json").exists()
+    step = SNNServingEngine(bank, dataclasses.replace(
+        plan, cycle_backend="step"), device="cpu")
+    assert step.run(_requests(SNNRequest, _payloads()))[0].status == \
+        "SERVED"
     with pytest.raises(ValueError):
         SNNServingEngine(bank, dataclasses.replace(plan, threshold=0),
                          device="cpu")
     with pytest.raises(ValueError):
         SNNEnginePlan(kernel_backend="interp")
+    with pytest.raises(ValueError):
+        SNNEnginePlan(cycle_backend="step", encode="kernel")
+    with pytest.raises(ValueError):
+        SNNServingEngine(bank, plan, device="cpu", snapshot_every=-1,
+                         journal_dir=str(tmp_path / "j2"))
 
 
 def test_cuda_is_the_default_device_and_never_falls_back():

@@ -37,7 +37,7 @@ from repro_torch.core.bitpack import as_words, words_to_numpy
 from repro_torch.engine import (SNNEngine, SNNEnginePlan, plan_from_config,
                                 train_stream, train_stream_batch)
 from repro_torch.launch import quickstart
-from repro_torch.serving import SNNServingEngine
+from repro_torch.serving import SNNRequest, SNNServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 N_IN, N, T, W = 784, 10, 12, 25
@@ -111,10 +111,22 @@ def test_plan_validates_its_cycle_backend():
     cfg = dataclasses.replace(CFG, cycle_backend="step")
     assert plan_from_config(cfg).cycle_backend == "step"
     assert plan_from_config(cfg, 1).ltp_prob == cfg.ltp_prob_active
-    with pytest.raises(NotImplementedError, match="step"):
-        SNNServingEngine(np.zeros((N, W), np.uint32),
-                         SNNEnginePlan(cycle_backend="step", w_exp=None),
-                         device="cpu")
+    # the serving engine takes a step plan (host-encoded windows through
+    # the step infer) and serves it as a window plan does
+    bank = np.random.default_rng(3).integers(0, 2**32, (N, W),
+                                             dtype=np.uint32)
+    inten = np.random.default_rng(4).integers(0, 256, (W * 32,),
+                                              dtype=np.uint8)
+    counts = []
+    for cycle in ("step", "window"):
+        eng = SNNServingEngine(bank, SNNEnginePlan(
+            cycle_backend=cycle, w_exp=None, threshold=8, leak=1),
+            device="cpu")
+        req = SNNRequest(rid=0, intensities=inten, n_steps=T)
+        eng.run([req])
+        assert req.status == "SERVED"
+        counts.append(req.counts)
+    np.testing.assert_array_equal(counts[0], counts[1])
 
 
 # --- the engine's verbs against the JAX step path ----------------------------

@@ -147,7 +147,24 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    magnitude with the same greedy token, and 8 decode steps after a
    600-token prefill (the 512-slot rings wrap) match the prefill logits
    of the prompt plus the tokens so far within the same tolerance.
-10. Prints the kernels' JSON line, then, last,
+10. The paper's evaluation: ``repro_torch.bench.run`` in process on the
+   card at the full paper setting (2,000 training and 1,000 test digits,
+   T 72, 2 epochs: 784-40 for Table 1, Fig. 4 on 1,000 and 200 digits,
+   784-{10, 20, 40} for Fig. 5, w_exp {128, 256, 512} at 784-40), with
+   the launch counts set to 0 before and read after (the encode serving
+   kernel, the pre-packed one and the stream training kernel required;
+   ``paper_launches`` in the kernels' JSON) and every plain version
+   watched; every row, and each training's wall time beside the card's
+   name and power limit, printed; Table 1's model counts the 1,000 test
+   digits through the encode kernel and through the pre-packed kernel
+   on their materialized windows, which must be equal; a reduced run
+   (Fig. 4's and Table 1's logic, 784-40, 256 training and 200 test
+   digits, T 72, 1 epoch) must equal the same run with the plain
+   versions on the CPU (a process of its own, run beside the card's
+   part): weights, class maps, correct count, event counts and both
+   modeled energy dicts.  Accuracy and the modeled energy ratio are
+   printed, not gated.  Prints the phase's wall time.
+11. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
@@ -2411,6 +2428,154 @@ def phase_lm_correctness(model) -> None:
     torch.cuda.empty_cache()
 
 
+# --- the paper's evaluation: Table 1, Fig. 4, Fig. 5, the w_exp sweep ------
+
+PAPER_CPU_FLAG = "--paper-eval-cpu"
+# the kernels the evaluation's path must launch: the classify from
+# intensities (row 1), the materialized test windows (row 2), an epoch
+# of a block's training (row 4)
+PAPER_KERNELS = ("infer_window_batch_encode", "infer_window_batch",
+                 "train_window_batch_encode")
+
+
+def paper_reduced(ds, device: str) -> dict:
+    """Fig. 4's and Table 1's logic at 784-40, T 72, one epoch, on
+    ``device`` over the dataset ``ds`` (256 training and 200 test
+    digits).  Returns what the card's run must equal on the CPU: both
+    models, the correct count, the event counts and both energy dicts."""
+    from repro_torch.bench import fig4_energy, table1_accuracy
+
+    f4 = fig4_energy.run(ds, epochs=1, device=device)
+    t1 = table1_accuracy.run(ds, epochs=1, device=device)
+    return {"fig4_weights": f4["model"].weights.cpu(),
+            "fig4_classes": f4["model"].neuron_class.cpu(),
+            "table1_weights": t1["model"].weights.cpu(),
+            "table1_classes": t1["model"].neuron_class.cpu(),
+            "correct": t1["correct"], "in_spikes": f4["in_spikes"],
+            "post": f4["post"], "energy": f4["energy"],
+            "events": {m: dataclasses.asdict(ev)
+                       for m, ev in f4["events"].items()}}
+
+
+def paper_cpu(data: str, out: str) -> None:
+    """Phase 10's reduced run with the plain versions on the CPU (a
+    process of its own) over the dataset saved in ``data`` (the card's
+    process preprocesses it once, so both runs see the same floats),
+    saved to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(4)
+    with np.load(data) as f:
+        ds = tuple(f[k] for k in ("tr", "tr_lab", "te", "te_lab"))
+    torch.save(paper_reduced(ds, "cpu"), out)
+
+
+def phase_paper_eval(card: str) -> dict:
+    """Phase 10: the paper's evaluation (``repro_torch.bench.run``) at
+    its full setting on the card, rows 1 and 2 held equal on the 1,000
+    test digits, and a reduced run held equal to the CPU plain run.
+    Returns the launch counts of the full run."""
+    import tempfile
+
+    from repro_torch.bench import common, run, table1_accuracy
+    from repro_torch.core import network
+    from repro_torch.core.encoder import encode_from_counter_batch
+    from repro_torch.engine import SNNEngine
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_paper_"))
+    cpu_data, cpu_out = tmp / "paper_digits.npz", tmp / "paper_cpu.pt"
+    small = common.digits_dataset(n_train=256, n_test=200)
+    np.savez(cpu_data, **dict(zip(("tr", "tr_lab", "te", "te_lab"), small)))
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), PAPER_CPU_FLAG,
+         str(cpu_data), str(cpu_out)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        with counting_plain_versions() as plain:
+            common.digits_dataset()                 # set-up, not timed
+            common.digits_dataset(n_train=1000, n_test=200)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run.run_modules(device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            for k in PAPER_KERNELS:
+                if not launches[k]:
+                    fail(f"the paper's evaluation never launched {k}: "
+                         f"{launches}")
+
+            # rows 1 and 2 on the 1,000 test digits: Table 1's model
+            model = res["table1_accuracy"]["model"]
+            cfg = model.cfg
+            _, _, te, _ = common.digits_dataset()
+            inten, seeds = common.encode_test_set(
+                te, table1_accuracy.TEST_SEED, "cuda")
+            enc = SNNEngine(cfg.plan(), device="cuda").infer(
+                model.weights, intensities=inten, seeds=seeds,
+                n_steps=cfg.n_steps)
+            pre = network.infer_batch(
+                model.weights,
+                encode_from_counter_batch(seeds, inten, cfg.n_steps),
+                cfg.lif())
+            if not torch.equal(enc, pre):
+                fail("the paper's test counts through the encode kernel "
+                     "differ from the pre-packed kernel's")
+
+            reduced = paper_reduced(small, "cuda")
+        if sum(plain.values()):
+            fail(f"the paper's evaluation called plain versions on the "
+                 f"card: {dict(plain)}")
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            fail(f"the paper's CPU plain run exited {proc.returncode}: "
+                 f"{out[-2000:]}")
+        cpu = torch.load(cpu_out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("fig4_weights", "fig4_classes", "table1_weights",
+              "table1_classes"):
+        if not torch.equal(reduced[k], cpu[k]):
+            fail(f"the paper's reduced run: {k} on the card differ from "
+                 f"the CPU plain run")
+    for k in ("correct", "in_spikes", "post", "energy", "events"):
+        if reduced[k] != cpu[k]:
+            fail(f"the paper's reduced run: {k} on the card "
+                 f"{reduced[k]} differ from the CPU plain run's {cpu[k]}")
+
+    for name, t in (
+            ("table1 784-40", res["table1_accuracy"]["train_s"]),
+            ("fig4 784-40 (1,000 digits)", res["fig4_energy"]["train_s"]),
+            *((f"fig5 784-{n}", t) for n, t in
+              res["fig5_neurons"]["train_s"].items()),
+            *((f"wexp {w} 784-40", r["train_s"]) for w, r in
+              res["wexp_sweep"].items())):
+        print(f"paper: training {name}: {t} s wall on the card ({card})",
+              flush=True)
+    t1, f5, f4 = (res["table1_accuracy"], res["fig5_neurons"],
+                  res["fig4_energy"])
+    sweep = {w: {k: r[k] for k in ("acc", "dead", "mean_on")}
+             for w, r in res["wexp_sweep"].items()}
+    print(f"paper: Table 1 784-40 CA {t1['accuracy']} (oracle ceiling "
+          f"{t1['ceiling']}); Fig. 5 CA {f5['accuracy']}, monotone "
+          f"{f5['monotone']}; Fig. 4 modeled (FPGA model) energy ratio "
+          f"{f4['ratio']} (paper 5.13), in_spikes {f4['in_spikes']}, post "
+          f"{f4['post']}; w_exp sweep {sweep}", flush=True)
+    print(f"paper: full setting {wall} s on the card; launches "
+          f"{ {k: launches[k] for k in PAPER_KERNELS} }; no plain version "
+          f"called; rows 1 and 2 equal on {len(te)} test digits; reduced "
+          f"run (784-40, 256 digits, 1 epoch) equal to the CPU plain run: "
+          f"weights, class maps, correct {reduced['correct']}, events, "
+          f"energy; phase wall {time.perf_counter() - t_phase} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2475,6 +2640,11 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
+    # phase 10: the paper's evaluation (Table 1, Fig. 4, Fig. 5, w_exp)
+    paper_launches = phase_paper_eval(card)
+
+    # phase 11: the kernels' JSON line, then the last line
+
     kernels = []
     for kname, source, shape, line, launches in (
             ("infer_window_batch_encode", SOURCE, "paper", 842,
@@ -2507,6 +2677,7 @@ def main() -> None:
         if launches is serve_launches:
             entry["train_launches"] = train_launches[kname]
         entry["stack_launches"] = stack_launches[kname]
+        entry["paper_launches"] = paper_launches[kname]
         if kname == "train_window_batch_encode":
             # the trainer's launches are the stream form: its time per
             # launch of 8 samples leads, the one-sample launch beside it
@@ -2567,5 +2738,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == CPU_REPLAY_FLAG:
         cpu_replays(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == PAPER_CPU_FLAG:
+        paper_cpu(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -21,6 +21,8 @@ from repro_torch.core.bitpack import MASK32
 # (tap t of the polynomial reads register bit 16 - t).
 _TAP_SHIFTS = (0, 2, 3, 5)  # taps 16, 14, 13, 11
 
+LFSR_PERIOD = (1 << 16) - 1
+
 # The constants of the counter draw; the CUDA kernel must use EXACTLY
 # these (PHI32 is the 32-bit golden ratio, 0x9E37 its 16-bit truncation).
 PHI32 = 0x9E3779B9

@@ -37,3 +37,9 @@ def lif_step(v: torch.Tensor, count: torch.Tensor, p: LIFParams
     v_next = torch.where(fired, torch.zeros_like(v_int),
                          torch.clamp(v_int - p.leak, min=0))
     return v_next.to(torch.int32), fired
+
+
+def lif_reset(n: int, device=None) -> torch.Tensor:
+    """Fresh membrane state int32[n] (the paper resets V between
+    samples)."""
+    return torch.zeros((n,), dtype=torch.int32, device=device)

@@ -65,7 +65,6 @@ from repro_torch.serving import (CRASH_EXIT_CODE, FaultInjector, FaultSpec,
                                  SNNWeightRefresher)
 from repro_torch.serving.overload import storm_policy
 
-LM_NEW_TOKENS = 8       # tokens generated per LM request
 SRC = Path(__file__).resolve().parents[2]
 TRACES = SRC.parent / "benchmarks" / "traces"
 
@@ -424,7 +423,7 @@ def _serve_lm(args) -> int:
     ops.reset_launch_counts()
     eng = ServingEngine(model, n_slots=args.slots, max_len=128)
     reqs = [Request(rid=i, prompt=[1 + i, 2, 3],
-                    max_new_tokens=LM_NEW_TOKENS)
+                    max_new_tokens=args.max_new)
             for i in range(args.requests)]
     eng.run(reqs, max_steps=2000)
     done = sum(r.done for r in reqs)
@@ -440,6 +439,8 @@ def main(argv=None) -> None:
                     choices=["wenquxing-snn"] + list_configs())
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=3)
+    ap.add_argument("--max-new", type=int, default=8,
+                    help="tokens generated per LM request")
     ap.add_argument("--encode", default="kernel", choices=["host", "kernel"],
                     help="where the Poisson encode runs (wenquxing-snn)")
     ap.add_argument("--device", default="cuda",

@@ -153,3 +153,28 @@ def test_serve_cli_serves_a_reduced_lm_on_the_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "gemma3-1b-smoke: 4/4 done, 32 tokens" in proc.stdout
     assert "dtype=torch.float32, flash_attention launches 0" in proc.stdout
+
+
+def test_serve_cli_max_new_sets_tokens_per_request():
+    """``--max-new`` is the JAX CLI's flag with its default (8): 3 asks
+    for 3 tokens a request."""
+    import ast
+
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "src" / "repro"
+                      / "launch" / "serve.py").read_text())
+    jax_default = [
+        kw.value.value for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and node.args
+        and isinstance(node.args[0], ast.Constant)
+        and node.args[0].value == "--max-new"
+        for kw in node.keywords if kw.arg == "default"]
+    assert jax_default == [8]
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma3-1b", "--reduced", "--device", "cpu", "--requests", "3",
+         "--slots", "2", "--max-new", "3"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "gemma3-1b-smoke: 3/3 done, 9 tokens" in proc.stdout

@@ -20,8 +20,10 @@ from repro.core.preprocess import soft_threshold as jsoft_threshold
 from repro.core.trainer import SNNModel as JModel
 from repro.data.digits import make_digits
 from repro_torch import convert
-from repro_torch.core import encoder, lif, preprocess, rvsnn, stdp
+from repro_torch.core import encoder, lif, rvsnn, stdp
 from repro_torch.core.bitpack import as_words, words_to_numpy
+from repro_torch.core.preprocess import (preprocess, preprocess_batch,
+                                         soft_threshold)
 
 
 def _stdp_operands(seed, n, w, fired_p):
@@ -142,15 +144,14 @@ def test_snn_regfile_batch_matches_jax_and_single_regfiles():
 def test_preprocess_batch_matches_jax_within_float_tolerance():
     imgs, _ = make_digits(12, seed=4)
     x = imgs.reshape(-1, 28, 28)
-    got = preprocess.preprocess_batch(torch.from_numpy(x), 0.1)
+    got = preprocess_batch(torch.from_numpy(x), 0.1)
     want = np.asarray(jpreprocess_batch(jnp.asarray(x), 0.1))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
-    np.testing.assert_allclose(preprocess.preprocess(torch.from_numpy(x[0])
-                                                     ).numpy(), want[0],
-                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(preprocess(torch.from_numpy(x[0])).numpy(),
+                               want[0], rtol=0, atol=1e-5)
     np.testing.assert_allclose(
-        preprocess.soft_threshold(torch.from_numpy(x)).numpy(),
+        soft_threshold(torch.from_numpy(x)).numpy(),
         np.asarray(jsoft_threshold(jnp.asarray(x))), rtol=0, atol=1e-6)
 
 

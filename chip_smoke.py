@@ -164,13 +164,36 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    part): weights, class maps, correct count, event counts and both
    modeled energy dicts.  Accuracy and the modeled energy ratio are
    printed, not gated.  Prints the phase's wall time.
-11. Prints the kernels' JSON line, then, last,
+11. Placement and the benchmark harness: (a) ``snn_mesh --check`` with
+   every shard on ``cuda:0``, on the 1-D grid of 8 and the 2-D grids
+   2,4, 4,2 and 8,1 (every wrapper's outputs ``torch.equal`` to the
+   unsharded kernel op: counts, weights, v, rasters, LFSR);
+   ``WENQUXING_22A_MESH2D`` (784-40, T 72, parallel mode) trained on the
+   phase-6 digits (1 epoch) on its (2, 4) grid on the card, weights and
+   class map equal to the local ``WENQUXING_22A_INTENSITY`` parallel run
+   on the card (phase 6 holds that one equal to the CPU), one stream
+   launch a shard; 64 intensity requests served through a meshed plan,
+   counts equal to the local engine's, one encode launch a shard a
+   batch; each meshed call's launches read just before and just after
+   it, every wrapper of ``--check`` held to one launch a shard for each
+   launch of the unsharded op, the unsharded and local reference runs
+   left out (``mesh_launches`` in the kernels' JSON); (b)
+   ``repro_torch.bench.run kernels_bench loadgen_bench`` in process on
+   the card, every row printed, gated against ``BENCH_torch.json`` (the
+   verdict printed, not required), every untimed field of the kernel and
+   serving rows and every field of the virtual-clock load rows
+   (``virtual``, ``sweep``, ``overload-1x/5x``) equal to the JAX
+   package's ``BENCH_kernels.json`` (read, not copied), every kernel the
+   rows call launched (``harness_launches``).  Prints the phase's wall
+   time.
+12. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
-sessions, the phase fails.  Any failed phase raises, and the script
-exits non-zero without the last line.  It imports only
-``repro_torch``, ``torch``, numpy and the standard library.
+sessions, the time comes from CUDA events around the calls (host
+dispatch gaps included), and a line says so.  Any failed phase raises, and the script exits
+non-zero without the last line.  It imports only ``repro_torch``,
+``torch``, numpy and the standard library.
 """
 
 from __future__ import annotations
@@ -236,8 +259,9 @@ def nvidia_smi(query: str) -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-# fresh profiler sessions a device time is sought in before the phase
-# fails (the profiler now and then records no device time for a while)
+# fresh profiler sessions a device time is sought in before the time is
+# taken from CUDA events instead (the profiler now and then records no
+# device time for a while, and on some runs not again in the process)
 PROFILER_TRIES = 5
 # the range each call of ``call_device_ms`` runs in
 CALL_LABEL = "chip_smoke.call"
@@ -247,8 +271,10 @@ def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
                 ) -> float:
     """``read(prof)`` of the first profiler session over ``reps`` calls
     of ``fn`` (after one warm-up call) that gives a time, in up to
-    ``PROFILER_TRIES`` fresh sessions; fails the phase where none does.
-    ``cpu`` records the host's operations too."""
+    ``PROFILER_TRIES`` fresh sessions; where none does, the time of one
+    call from CUDA events around ``reps`` calls back to back (host
+    dispatch gaps included), said so on a line of its own.  ``cpu``
+    records the host's operations too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -265,8 +291,26 @@ def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
         ms = read(prof)
         if ms is not None:
             return ms
-    fail(f"the profiler recorded no device time of {what} in "
-         f"{PROFILER_TRIES} sessions")
+    ms = events_ms(fn, reps)
+    print(f"timing: the profiler recorded no device time of {what} in "
+          f"{PROFILER_TRIES} sessions; {ms} ms a call from CUDA events "
+          f"over {reps} calls back to back instead", flush=True)
+    return ms
+
+
+def events_ms(fn, reps: int) -> float:
+    """Time of one call of ``fn`` from CUDA events around ``reps`` calls
+    back to back, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def kernel_ms(fn, symbol: str, reps: int) -> float:
@@ -2497,7 +2541,7 @@ def phase_paper_eval(card: str) -> dict:
             common.digits_dataset(n_train=1000, n_test=200)
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            res = run.run_modules(device="cuda")
+            res = run.run_modules(run.PAPER_MODULES, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = ops.launch_counts()
@@ -2576,6 +2620,192 @@ def phase_paper_eval(card: str) -> dict:
     return launches
 
 
+# --- placement on a device grid, and the benchmark harness -----------------
+
+# the kernels the placement part must launch: every window op (the
+# ``--check`` runs each wrapper), the meshed trainer's stream kernel and
+# the meshed serving's encode kernel and canary
+MESH_KERNELS = ("infer_window_batch_encode", "infer_window_batch",
+                "train_window_batch", "train_window_batch_encode",
+                "fused_snn_window", "fused_snn_window_encode")
+# the kernels the harness's rows call in this process (the grid rows run
+# in processes of their own, their launches counted there)
+HARNESS_KERNELS = ("infer_window_batch_encode", "infer_window_batch",
+                   "train_window_batch", "train_window_batch_encode",
+                   "fused_snn_step", "spike_process", "lif_step",
+                   "stdp_update")
+# the JAX package's committed rows, whose deterministic fields the
+# port's rows must equal, and the port's committed baseline
+JAX_BENCH = ROOT / "BENCH_kernels.json"
+TORCH_BENCH = ROOT / "BENCH_torch.json"
+VIRTUAL_ROWS = ("loadgen/virtual-50k@20000", "loadgen/sweep-5k",
+                "loadgen/overload-1x-50k@30000",
+                "loadgen/overload-5x-50k@150000")
+
+
+def phase_placement() -> dict:
+    """Phase 11 (a): ``snn_mesh --check`` with every shard on ``cuda:0``
+    (the 1-D grid of 8 and the 2-D grids 2,4, 4,2 and 8,1), the meshed
+    trainer at full width against the local one, and 64 requests served
+    through a meshed plan against the local engine.  Returns the launches
+    of the meshed calls alone: each wrapper's in ``--check`` (held there
+    to one a shard for each launch of the unsharded op), the meshed
+    trainer's and the meshed serving engine's; the unsharded and local
+    reference runs are left out."""
+    from repro_torch.configs.wenquxing_snn import (WENQUXING_22A_INTENSITY,
+                                                   WENQUXING_22A_MESH2D)
+    from repro_torch.core.trainer import train
+    from repro_torch.distributed import snn_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mnist_stdp import preprocessed_digits
+    from repro_torch.serving import SNNServingEngine, SNNServingPolicy
+
+    dev = torch.device("cuda", 0)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] += v
+
+    for argv in (["--devices", "8"],
+                 ["--mesh-shape", "2,4", "--mesh-shape", "4,2",
+                  "--mesh-shape", "8,1"]):
+        try:
+            add(snn_mesh.check(snn_mesh.parse_args(
+                ["--check", "--on", "cuda:0", *argv])))
+        except AssertionError as e:
+            fail(f"snn_mesh --check {' '.join(argv)} on the card: {e}")
+
+    # WENQUXING_22A_MESH2D at full width (784-40, T 72, parallel mode) on
+    # the phase-6 digits, its (2, 4) grid on the one card
+    x, labels = preprocessed_digits(256, seed=1)
+    grid = snn_mesh.snn_mesh2d(2, 4, devices=[dev] * 8)
+    before = ops.launch_counts()["train_window_batch_encode"]
+    t0 = time.perf_counter()
+    meshed = train(dataclasses.replace(WENQUXING_22A_MESH2D, epochs=1), x,
+                   labels, device=dev, mesh=grid)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    stream = ops.launch_counts()["train_window_batch_encode"] - before
+    add({"train_window_batch_encode": stream})
+    t0 = time.perf_counter()
+    local = train(dataclasses.replace(WENQUXING_22A_INTENSITY, epochs=1,
+                                      train_mode="parallel"), x, labels,
+                  device=dev)
+    torch.cuda.synchronize()
+    t_local = time.perf_counter() - t0
+    if not (torch.equal(meshed.weights, local.weights)
+            and torch.equal(meshed.neuron_class, local.neuron_class)):
+        fail("the meshed trainer's weights or class map differ from the "
+             "local parallel run")
+    if stream != grid.size:
+        fail(f"the meshed trainer launched the stream kernel {stream} "
+             f"times, not one a shard ({grid.size})")
+
+    # 64 intensity requests through a meshed plan and the local one
+    served = {}
+    for name in ("local", "grid"):
+        plan, weights, neuron_class, reqs = slice_setup(64, rid0=4096)
+        if name == "grid":
+            plan = dataclasses.replace(plan, mesh=grid)
+        eng = SNNServingEngine(weights, plan, neuron_class=neuron_class,
+                               policy=SNNServingPolicy(canary_every=2),
+                               device=dev)
+        before = ops.launch_counts()
+        serve_steps(eng, reqs)
+        after = ops.launch_counts()
+        st = eng.stats()
+        bad = [r.rid for r in reqs if r.status != "SERVED"]
+        if bad or st["degraded"] or st["canary_failures"]:
+            fail(f"meshed serving ({name}): not SERVED {bad[:5]}, "
+                 f"degraded {st['degraded']}, canary failures "
+                 f"{st['canary_failures']}")
+        served[name] = (np.stack([r.counts for r in reqs]), eng.batches,
+                        st["canary_checks"],
+                        {k: after[k] - before[k] for k in after})
+    (lc, _, _, _), (gc, batches, canaries, grid_l) = (served["local"],
+                                                      served["grid"])
+    add(grid_l)
+    if not np.array_equal(gc, lc):
+        fail("counts served through the meshed plan differ from the "
+             "local engine's")
+    if grid_l["infer_window_batch_encode"] != grid.size * batches:
+        fail(f"meshed serving launched the encode kernel "
+             f"{grid_l['infer_window_batch_encode']} times for {batches} "
+             f"batches on {grid.size} shards")
+    if grid_l["infer_window_batch"] < grid.size * canaries:
+        fail(f"meshed canary launched the pre-packed kernel "
+             f"{grid_l['infer_window_batch']} times for {canaries} checks")
+    for k in MESH_KERNELS:
+        if not launches[k]:
+            fail(f"the placement part never launched {k}: {launches}")
+    print(f"placement: --check equal on the 1-D grid of 8 and the 2-D "
+          f"grids 2,4 4,2 8,1 (all shards on {dev}); WENQUXING_22A_MESH2D "
+          f"784-40 T 72 on 256 digits, 1 epoch: {stream} stream launches "
+          f"(one a shard), {t_mesh} s against {t_local} s local, weights "
+          f"and class map equal to the local parallel run; 64 requests "
+          f"through the (2, 4) plan in {batches} batches equal to the local "
+          f"engine's counts, {grid_l['infer_window_batch_encode']} encode "
+          f"launches; mesh_launches {launches}", flush=True)
+    return launches
+
+
+def phase_harness(card: str) -> dict:
+    """Phase 11 (b): ``repro_torch.bench.run kernels_bench loadgen_bench``
+    in process on the card, gated against ``BENCH_torch.json`` (the
+    verdict printed, not required), its deterministic fields held equal
+    to the JAX package's ``BENCH_kernels.json``.  Returns the launch
+    counts of the run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bench import common, kernels_bench, run
+    from repro_torch.kernels import ops
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_"))
+    out = tmp / "rows.json"
+    if TORCH_BENCH.exists():
+        shutil.copy(TORCH_BENCH, out)
+    common.RECORDS.clear()                  # the paper phase's rows
+    ops.reset_launch_counts()
+    try:
+        rc = run.main(["kernels_bench", "loadgen_bench", "--device", "cuda",
+                       f"--json={out}", "--gate"])
+        rows = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = ops.launch_counts()
+    print(f"harness: gate exit {rc} against BENCH_torch.json "
+          f"({'committed' if TORCH_BENCH.exists() else 'absent'}; printed, "
+          f"not required); card {card}", flush=True)
+    for k in HARNESS_KERNELS:
+        if not launches[k]:
+            fail(f"the harness never launched {k}: {launches}")
+    ref = json.loads(JAX_BENCH.read_text())
+    missing = sorted(n for n in ref if n.startswith(
+        ("kernels/", "serve/", "loadgen/")) and n not in rows)
+    if missing:
+        fail(f"the harness lacks rows of BENCH_kernels.json: {missing}")
+    for name in ref:
+        if name.startswith(("kernels/", "serve/")):
+            got, want = (kernels_bench.untimed(r[name]) for r in (rows, ref))
+            if got != want:
+                fail(f"{name}: its untimed fields {got} differ from "
+                     f"BENCH_kernels.json's {want}")
+    for name in VIRTUAL_ROWS:
+        got = {k: v for k, v in rows[name].items() if k != "us_per_call"}
+        want = {k: v for k, v in ref[name].items() if k != "us_per_call"}
+        if got != want:
+            fail(f"{name} differs from BENCH_kernels.json: {got} against "
+                 f"{want}")
+    print(f"harness: {len(rows) - 1} rows; every untimed field of the "
+          f"kernel and serving rows (all but {kernels_bench.TIMED_FIELDS}) "
+          f"and the "
+          f"virtual-clock rows {list(VIRTUAL_ROWS)} equal to "
+          f"BENCH_kernels.json; harness_launches {launches}", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2643,7 +2873,13 @@ def main() -> None:
     # phase 10: the paper's evaluation (Table 1, Fig. 4, Fig. 5, w_exp)
     paper_launches = phase_paper_eval(card)
 
-    # phase 11: the kernels' JSON line, then the last line
+    # phase 11: placement on a device grid, then the benchmark harness
+    t_phase = time.perf_counter()
+    mesh_launches = phase_placement()
+    harness_launches = phase_harness(card)
+    print(f"phase 11: wall {time.perf_counter() - t_phase} s", flush=True)
+
+    # phase 12: the kernels' JSON line, then the last line
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -2678,6 +2914,8 @@ def main() -> None:
             entry["train_launches"] = train_launches[kname]
         entry["stack_launches"] = stack_launches[kname]
         entry["paper_launches"] = paper_launches[kname]
+        entry["mesh_launches"] = mesh_launches[kname]
+        entry["harness_launches"] = harness_launches[kname]
         if kname == "train_window_batch_encode":
             # the trainer's launches are the stream form: its time per
             # launch of 8 samples leads, the one-sample launch beside it
@@ -2712,6 +2950,8 @@ def main() -> None:
             "library_ms": None, "shape": "step-parallel",
             "call_ms": main_t["call_ms"],
             "stack_launches": stack_launches[kname],
+            "mesh_launches": mesh_launches[kname],
+            "harness_launches": harness_launches[kname],
             **{k: main_t[k] for k in GRAPH_KEYS if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by", "ms_cold")
@@ -2723,6 +2963,8 @@ def main() -> None:
         "replaces": FLASH_PALLAS,
         "launches": lm_launches["flash_attention"],
         "stack_launches": stack_launches["flash_attention"],
+        "mesh_launches": mesh_launches["flash_attention"],
+        "harness_launches": harness_launches["flash_attention"],
         "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

@@ -13,8 +13,9 @@ from repro_torch.configs.base import (ArchConfig, LayerKind, get_config,
 # Register the ported architectures (import side effects).
 from repro_torch.configs import (command_r_35b, gemma3_1b,  # noqa: F401
                                  llama3_405b, starcoder2_3b)
-from repro_torch.configs.wenquxing_snn import WENQUXING_22A  # noqa: F401
+from repro_torch.configs.wenquxing_snn import (  # noqa: F401
+    WENQUXING_22A, WENQUXING_22A_MESH2D)
 
 __all__ = ["ArchConfig", "LayerKind", "get_config", "layer_kinds",
            "list_configs", "reduced", "register", "scan_grouping",
-           "WENQUXING_22A"]
+           "WENQUXING_22A", "WENQUXING_22A_MESH2D"]

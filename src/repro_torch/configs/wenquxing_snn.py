@@ -12,7 +12,7 @@ import dataclasses
 from repro_torch.core.trainer import SNNTrainConfig
 
 __all__ = ["SNNTrainConfig", "VARIANTS", "WENQUXING_22A",
-           "WENQUXING_22A_INTENSITY"]
+           "WENQUXING_22A_INTENSITY", "WENQUXING_22A_MESH2D"]
 
 WENQUXING_22A = SNNTrainConfig(
     n_inputs=784,
@@ -40,3 +40,14 @@ VARIANTS = {
 # seeds, so no N x T x w spike tensor exists.
 WENQUXING_22A_INTENSITY = dataclasses.replace(
     WENQUXING_22A, encode="kernel", encode_seed=0x22A)
+
+# Cluster-scale training sweep: all blocks train at once as one batched
+# grid per presented sample, split over a 2-D (data x neuron) device
+# grid: block streams over "data", neuron rows over "neurons".  Any
+# (data, neurons) factorization is bit-exact with the local run; (2, 4)
+# is the JAX package's 8-device grid.  Its plan takes the visible cards
+# (8 of them), or the CPU named 8 times for an engine on the CPU;
+# ``train(..., mesh=snn_mesh2d(2, 4, devices=[...]))`` places it on any
+# other 8 device names.
+WENQUXING_22A_MESH2D = dataclasses.replace(
+    WENQUXING_22A_INTENSITY, train_mode="parallel", mesh_shape=(2, 4))

@@ -29,6 +29,11 @@ package's encode).
 classification) cycle by cycle, one fused RV-SNN step launch per cycle,
 instead of one window launch; the two are bit-exact.
 
+Placement: ``mesh_shape=(data, neurons)`` (or ``train(..., mesh=...)``)
+splits every engine launch over a 2-D device grid: the block-stream
+axis over "data", neuron rows over "neurons"; weights and class maps
+are bit-exact with the local run.
+
 Randomness is explicit: :func:`train` takes the per-block LFSR base
 seeds (``block_seeds``) or draws them from a CPU generator seeded from
 ``cfg.seed``.  Everything runs on the device the caller names (``cuda``
@@ -77,6 +82,8 @@ class SNNTrainConfig:
     window_chunk: int | None = None  # accepted; the kernels stream T
     encode: str = "host"             # "host" | "kernel" (in-kernel draw)
     encode_seed: int = 0             # counter base for the draw
+    mesh_shape: tuple | None = None  # (data, neurons) 2-D placement of
+                                     # every engine launch (None = local)
 
     @property
     def n_blocks(self) -> int:
@@ -96,9 +103,10 @@ class SNNTrainConfig:
         lp = self.ltp_prob if block_idx == 0 else self.ltp_prob_active
         return stdp_params(self.n_inputs, self.w_exp, self.gain, lp)
 
-    def plan(self, block_idx: int = 0):
-        """The engine execution plan this config describes."""
-        return plan_from_config(self, block_idx)
+    def plan(self, block_idx: int = 0, mesh=None):
+        """The engine execution plan this config describes (an explicit
+        ``mesh`` overrides ``mesh_shape``)."""
+        return plan_from_config(self, block_idx, mesh)
 
 
 @dataclass
@@ -121,9 +129,11 @@ def _train_block(cfg: SNNTrainConfig, lfsr_seed: int,
                  labels: torch.Tensor, block_idx: int, *,
                  spike_trains: torch.Tensor | None = None,
                  intensities: torch.Tensor | None = None,
-                 sample_idx: torch.Tensor | None = None) -> torch.Tensor:
+                 sample_idx: torch.Tensor | None = None,
+                 mesh=None) -> torch.Tensor:
     """Train one 10-neuron block online over the sample stream, on the
-    device the labels lie on.
+    device the labels lie on (on ``mesh`` when given, else on the
+    config's placement).
 
     The stream is EITHER pre-encoded ``spike_trains`` int32[N, T, w] OR
     uint8 ``intensities`` [N, n_inputs] with their dataset indices
@@ -136,7 +146,7 @@ def _train_block(cfg: SNNTrainConfig, lfsr_seed: int,
     w0 = init_weights(cfg.n_classes, cfg.words, dense=True, device=dev)
     rf = snn_regfile(w0, seed=lfsr_seed)
     teach = _teacher(labels, cfg)
-    eng = SNNEngine(cfg.plan(block_idx), device=dev)
+    eng = SNNEngine(cfg.plan(block_idx, mesh), device=dev)
     for epoch in range(cfg.epochs):
         if intensities is not None:
             rf, _ = train_stream(
@@ -152,8 +162,8 @@ def _train_blocks_parallel(cfg: SNNTrainConfig, lfsr_seeds,
                            labels: torch.Tensor, *,
                            spike_trains: torch.Tensor | None = None,
                            intensities: torch.Tensor | None = None,
-                           sample_idx: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           sample_idx: torch.Tensor | None = None,
+                           mesh=None) -> torch.Tensor:
     """Train all blocks concurrently on the full set, B = n_blocks
     streams in every launch.  Blocks differ by their LFSR seeds (``lfsr_seeds``, one per
     block) and their LTP schedule (block 0 ``ltp_prob``, the rest
@@ -170,7 +180,7 @@ def _train_blocks_parallel(cfg: SNNTrainConfig, lfsr_seeds,
     teach_b = teach.expand((b,) + teach.shape)
     lp = torch.tensor([cfg.ltp_prob if i == 0 else cfg.ltp_prob_active
                        for i in range(b)], dtype=torch.int32, device=dev)
-    eng = SNNEngine(cfg.plan(0), device=dev)
+    eng = SNNEngine(cfg.plan(0, mesh), device=dev)
     for epoch in range(cfg.epochs):
         if intensities is not None:
             rfs, _ = train_stream_batch(
@@ -187,13 +197,14 @@ def _train_blocks_parallel(cfg: SNNTrainConfig, lfsr_seeds,
 
 def classify(model: SNNModel, spike_trains: torch.Tensor | None = None,
              *, intensities: torch.Tensor | None = None,
-             seeds=None) -> torch.Tensor:
+             seeds=None, mesh=None) -> torch.Tensor:
     """Predicted class int32[B]: the class of the most-firing neuron
     (the first on ties).  Takes pre-encoded ``spike_trains``
     int32[B, T, w] or uint8 ``intensities`` [B, n_inputs] (+ per-sample
     ``seeds``), presented over ``cfg.n_steps`` cycles through the
-    plan's ``infer`` verb on the model's device."""
-    eng = SNNEngine(model.cfg.plan(), device=model.weights.device)
+    plan's ``infer`` verb on the model's device (on ``mesh`` when
+    given, else on the config's placement)."""
+    eng = SNNEngine(model.cfg.plan(mesh=mesh), device=model.weights.device)
     if intensities is not None:
         counts = eng.infer(model.weights, intensities=intensities,
                            seeds=seeds, n_steps=model.cfg.n_steps)
@@ -225,7 +236,7 @@ def _block_seeds(cfg: SNNTrainConfig, g: torch.Generator) -> list[int]:
 
 def train(cfg: SNNTrainConfig, images, labels, *,
           generator: torch.Generator | None = None, block_seeds=None,
-          device=None) -> SNNModel:
+          device=None, mesh=None) -> SNNModel:
     """Full training (active learning, or all blocks in parallel).
 
     images float32[N, n_inputs] normalized (already preprocessed);
@@ -235,7 +246,9 @@ def train(cfg: SNNTrainConfig, images, labels, *,
     the ``encode="host"`` Poisson encode.  Images are quantized (or
     encoded) on the host and then moved to ``device`` (``cuda`` unless
     the caller asks for another), so a card run and a CPU run see the
-    same inputs.
+    same inputs.  ``mesh`` (an ``SNNMesh`` whose first device is
+    ``device``) places every launch on that grid, in place of the
+    config's ``mesh_shape``.
     """
     if cfg.train_mode not in _TRAIN_MODES:
         raise ValueError(f"train_mode must be one of {_TRAIN_MODES}, got "
@@ -267,7 +280,7 @@ def train(cfg: SNNTrainConfig, images, labels, *,
         weights = _train_blocks_parallel(
             cfg, block_seeds[:cfg.n_blocks], labels_t,
             spike_trains=spike_trains, intensities=intensities,
-            sample_idx=sample_idx)
+            sample_idx=sample_idx, mesh=mesh)
         return SNNModel(weights, classes.repeat(cfg.n_blocks), cfg,
                         n * cfg.n_blocks * cfg.epochs)
 
@@ -278,15 +291,16 @@ def train(cfg: SNNTrainConfig, images, labels, *,
         cur_trains, cur_inten, cur_idx, cur_labels = cur
         blocks.append(_train_block(
             cfg, block_seeds[b], cur_labels, b, spike_trains=cur_trains,
-            intensities=cur_inten, sample_idx=cur_idx))
+            intensities=cur_inten, sample_idx=cur_idx, mesh=mesh))
         presentations += len(cur_labels) * cfg.epochs
         if b + 1 == cfg.n_blocks:
             break
         # active learning: the next block trains on this ensemble's errors
         model = SNNModel(torch.cat(blocks), classes.repeat(len(blocks)), cfg)
-        pred = (classify(model, intensities=intensities, seeds=seeds)
+        pred = (classify(model, intensities=intensities, seeds=seeds,
+                         mesh=mesh)
                 if intensities is not None else
-                classify(model, spike_trains))
+                classify(model, spike_trains, mesh=mesh))
         err = (pred != labels_t).nonzero().flatten()
         if err.numel() == 0:
             break

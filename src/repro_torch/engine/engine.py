@@ -32,6 +32,13 @@ is one launch of the stream kernel (``ops.train_stream_batch_encode``);
 otherwise one launch per presented sample.  :func:`refresh_weights`
 runs one such pass over a serving-shaped bank.
 
+With a placement (``plan.mesh`` or ``plan.mesh_shape``, window path
+only), every window op runs through its grid wrapper in
+:mod:`repro_torch.distributed.snn_mesh` instead: the same verbs, one
+launch per shard (d x n a call), results gathered on the engine's
+device, which must be the grid's first device.  The stream drivers'
+one-launch form runs a stream launch per shard.
+
 The engine places its inputs on its device.  On a CUDA device with
 ``kernel_backend="kernel"`` the kernels are built when the engine is
 constructed, so a build failure raises there and not inside a launch.
@@ -40,6 +47,7 @@ constructed, so a build failure raises there and not inside a launch.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import NamedTuple
 
 import torch
@@ -50,6 +58,7 @@ from repro_torch.core.encoder import (encode_from_counter_batch,
 from repro_torch.core.rvsnn import (SnnRegFile, snn_regfile,
                                     snn_regfile_batch, snn_step)
 from repro_torch.core.stdp import STDPParams
+from repro_torch.distributed import snn_mesh
 from repro_torch.engine.plan import SNNEnginePlan
 from repro_torch.kernels import ops
 
@@ -110,12 +119,26 @@ class SNNEngine:
     def __init__(self, plan: SNNEnginePlan, device=None):
         self.plan = plan
         self.device = resolve_device(device)
+        self.mesh = plan.placement(self.device)
+        if self.mesh is not None and (
+                self.mesh.first != snn_mesh.canonical_device(self.device)):
+            raise ValueError(f"the plan's grid gathers on "
+                             f"{self.mesh.first}, the engine runs on "
+                             f"{self.device}")
         if self.device.type == "cuda" and plan.kernel_backend == "kernel":
             ops.load_kernels()
         self._ltp = None     # the plan's ltp_prob, int32[1] on the device
 
     def __repr__(self) -> str:
         return f"SNNEngine({self.plan!r}, device={self.device})"
+
+    def _op(self, name: str):
+        """The window op ``ops.<name>``, or with a placement its grid
+        wrapper ``snn_mesh.sharded_<name>`` on the plan's grid."""
+        if self.mesh is None:
+            return getattr(ops, name)
+        return functools.partial(getattr(snn_mesh, f"sharded_{name}"),
+                                 mesh=self.mesh)
 
     # --- encoding --------------------------------------------------------
 
@@ -156,7 +179,7 @@ class SNNEngine:
                                     device=self.device)
             sd = self._seeds(seeds, inten.shape[0], w.device)
             if p.encode == "kernel":
-                return ops.infer_window_batch_encode(
+                return self._op("infer_window_batch_encode")(
                     w, inten, sd, n_steps=n_steps, threshold=p.threshold,
                     leak=p.leak, t_total=t_total, t_chunk=p.t_chunk,
                     backend=p.kernel_backend)
@@ -170,7 +193,7 @@ class SNNEngine:
             _, fired = self._steps(rf, windows.transpose(0, 1).contiguous(),
                                    None, None)
             return fired.sum(dim=0, dtype=torch.int32)
-        return ops.infer_window_batch(
+        return self._op("infer_window_batch")(
             w, windows, threshold=p.threshold, leak=p.leak,
             t_chunk=p.t_chunk, backend=p.kernel_backend)
 
@@ -213,7 +236,7 @@ class SNNEngine:
         if p.learn:
             kw["ltp_prob"] = self._plan_ltp()
         if window is None and p.encode == "kernel":
-            return ops.fused_snn_window_encode(
+            return self._op("fused_snn_window_encode")(
                 rf.weights, intensities, seed, rf.v, rf.lfsr, teach,
                 n_steps=n_steps, **kw)
         if window is None:
@@ -223,8 +246,8 @@ class SNNEngine:
             out, fired = self._steps(rf, window, teach,
                                      self._stdp(kw.get("ltp_prob")))
             return out.weights, out.v, fired, out.lfsr
-        return ops.fused_snn_window(rf.weights, window, rf.v, rf.lfsr,
-                                    teach, **kw)
+        return self._op("fused_snn_window")(rf.weights, window, rf.v,
+                                            rf.lfsr, teach, **kw)
 
     def train(self, rf: SnnRegFile, window=None, teach=None, *,
               intensities=None, seed=None, n_steps: int | None = None
@@ -270,7 +293,7 @@ class SNNEngine:
         kw.update(ltp_prob=ltp_prob, t_chunk=p.t_chunk,
                   backend=p.kernel_backend)
         if windows is None and p.encode == "kernel":
-            return ops.train_window_batch_encode(
+            return self._op("train_window_batch_encode")(
                 rfs.weights, intensities, seeds, rfs.v, rfs.lfsr, teach,
                 n_steps=n_steps, **kw)
         if windows is None:
@@ -281,8 +304,8 @@ class SNNEngine:
                                      .contiguous(), teach,
                                      self._stdp(ltp_prob))
             return out.weights, out.v, fired.transpose(0, 1), out.lfsr
-        return ops.train_window_batch(rfs.weights, windows, rfs.v,
-                                      rfs.lfsr, teach, **kw)
+        return self._op("train_window_batch")(rfs.weights, windows, rfs.v,
+                                              rfs.lfsr, teach, **kw)
 
     def _stream_kernel(self, rfs: SnnRegFile, intensities: torch.Tensor,
                        seeds: torch.Tensor, teach: torch.Tensor,
@@ -294,7 +317,7 @@ class SNNEngine:
         p = self.plan
         kw = {k: v for k, v in p.window_kwargs().items()
               if k not in ("train", "ltp_prob")}
-        return ops.train_stream_batch_encode(
+        return self._op("train_stream_batch_encode")(
             rfs.weights, intensities, seeds, rfs.lfsr, teach,
             n_steps=n_steps, ltp_prob=ltp_prob, backend=p.kernel_backend,
             **kw)

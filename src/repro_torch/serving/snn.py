@@ -3,7 +3,9 @@
 :class:`SNNServingEngine` keeps a request queue and, per engine step,
 admits up to ``plan.max_batch`` requests, pads their (possibly ragged)
 windows into one batch, and serves them with a single
-:meth:`SNNEngine.infer` launch.
+:meth:`SNNEngine.infer` call: one launch, or one launch per shard of
+the plan's device grid when it holds one (``mesh``/``mesh_shape``), so
+population-split serving and request batching compose.
 
 Requests come in two shapes:
 

@@ -383,7 +383,8 @@ class SNNWeightRefresher:
 
     ``plan`` must be a *learning* plan (``w_exp`` set); training runs
     through :func:`repro_torch.engine.refresh_weights` on ``device``
-    (``cuda`` unless the caller asks for another).
+    (``cuda`` unless the caller asks for another), on the plan's device
+    grid when it holds one.
     ``intensities``/``labels`` are the labeled refresh stream
     (uint8[N, n_in] / int[N]); each refresh cycle takes the next
     ``policy.refresh_samples``-sized slice (cyclic) with epoch-keyed

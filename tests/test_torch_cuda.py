@@ -1220,3 +1220,146 @@ def test_cuda_train_while_serving_equals_the_cpu_run(cuda, tmp_path):
     # the card's ladder has no plain rung: one breaker fewer
     assert st.pop("breaker_states") == cpu[0].pop("breaker_states")[:-1]
     assert card[:3] == cpu[:3]
+
+
+# --- placement on a device grid (repro_torch.distributed.snn_mesh) ----------
+
+def _mesh_operands(dev, n=13, w=25, t=72, b=6, n_in=784):
+    from repro_torch.core import lfsr
+
+    rng = np.random.default_rng(n * b)
+    o = dict(
+        weights=as_words(rng.integers(0, 2**32, (n, w), dtype=np.uint32),
+                         dev),
+        trains=as_words(_sparse_windows(rng, b, t, w), dev),
+        v=torch.zeros((n,), dtype=torch.int32, device=dev),
+        teach=torch.from_numpy(rng.integers(-50, 50, (n,), dtype=np.int32)
+                               ).to(dev),
+        lfsr=lfsr.seed(7, n * w, device=dev).reshape(n, w),
+        inten=torch.from_numpy(rng.integers(0, 256, (b, n_in),
+                                            dtype=np.uint8)).to(dev),
+        seeds=torch.from_numpy(np.resize(SEEDS, b)).to(dev),
+        t_total=torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32)
+                                 ).to(dev),
+        wts_b=as_words(rng.integers(0, 2**32, (b, n, w), dtype=np.uint32),
+                       dev),
+        v_b=torch.zeros((b, n), dtype=torch.int32, device=dev),
+        teach_b=torch.from_numpy(rng.integers(-50, 50, (b, n),
+                                              dtype=np.int32)).to(dev),
+        lfsr_b=torch.stack([lfsr.seed(3 + i, n * w, device=dev)
+                            .reshape(n, w) for i in range(b)]),
+        ltp_b=torch.tensor(np.resize([16, 1023, 500], b), dtype=torch.int32,
+                           device=dev))
+    return o
+
+
+def _mesh_calls(o, t, n_syn):
+    """(op name, args, kwargs) of every wrapper at the operands ``o``."""
+    kw = dict(threshold=90, leak=3, w_exp=128, gain=4, n_syn=n_syn)
+    x3 = o["inten"][None].expand(3, -1, -1)
+    return [
+        ("infer_window_batch", (o["weights"], o["trains"]),
+         dict(threshold=90, leak=3)),
+        ("fused_snn_window", (o["weights"], o["trains"][1], o["v"],
+                              o["lfsr"], o["teach"]),
+         dict(kw, ltp_prob=200, train=True)),
+        ("fused_snn_window", (o["weights"], o["trains"][1], o["v"],
+                              o["lfsr"], o["teach"]),
+         dict(kw, ltp_prob=200, train=False)),
+        ("train_window_batch", (o["wts_b"], o["trains"], o["v_b"],
+                                o["lfsr_b"], o["teach_b"]),
+         dict(kw, ltp_prob=o["ltp_b"])),
+        ("infer_window_batch_encode", (o["weights"], o["inten"], o["seeds"]),
+         dict(n_steps=t, threshold=90, leak=3, t_total=o["t_total"])),
+        ("fused_snn_window_encode", (o["weights"], o["inten"][0], 9, o["v"],
+                                     o["lfsr"], o["teach"]),
+         dict(kw, n_steps=t, ltp_prob=200, train=True)),
+        ("fused_snn_window_encode", (o["weights"], o["inten"][0], 9, o["v"],
+                                     o["lfsr"], o["teach"]),
+         dict(kw, n_steps=t, ltp_prob=200, train=False)),
+        ("train_window_batch_encode", (o["wts_b"], o["inten"], o["seeds"],
+                                       o["v_b"], o["lfsr_b"], o["teach_b"]),
+         dict(kw, n_steps=t, ltp_prob=o["ltp_b"])),
+        ("train_stream_batch_encode", (o["wts_b"], x3, o["seeds"][:3],
+                                       o["lfsr_b"],
+                                       o["teach_b"][None].expand(3, -1, -1)),
+         dict(kw, n_steps=t, ltp_prob=o["ltp_b"])),
+    ]
+
+
+# the kernel each wrapper launches (and counts under); a read-only
+# window (train=False) counts under its own name
+_COUNTED = {"fused_snn_window": "train_window_batch",
+            "fused_snn_window_encode": "train_window_batch_encode",
+            "train_stream_batch_encode": "train_window_batch_encode"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["1d-4", "2x2", "4x1"])
+@pytest.mark.parametrize("n,w,t,b,n_in", [(13, 25, 72, 6, 784),
+                                          (40, 25, 16, 32, 784),
+                                          (130, 128, 8, 3, 4096)])
+def test_cuda_grid_wrappers_equal_the_unsharded_kernels(cuda, grid, n, w, t,
+                                                        b, n_in):
+    """Every wrapper with every shard on one card (``cuda:0`` named 4
+    times), against the unsharded kernel op: ``torch.equal`` outputs and
+    one launch per shard."""
+    from repro_torch.distributed import snn_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = (snn_mesh.snn_mesh(4, devices=[dev] * 4) if grid == "1d-4" else
+            snn_mesh.snn_mesh2d(*map(int, grid.split("x")),
+                                devices=[dev] * 4))
+    o = _mesh_operands(dev, n, w, t, b, n_in)
+    for name, args, kw in _mesh_calls(o, t, n_in):
+        want = getattr(ops, name)(*args, **kw)
+        counted = (name if not kw.get("train", True)
+                   else _COUNTED.get(name, name))
+        ops.reset_launch_counts()
+        got = getattr(snn_mesh, f"sharded_{name}")(*args, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        assert getattr(ops, counted).launches == 4, (name, kw.get("train"))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, r in zip(got, want, strict=True):
+            assert g.device == dev and torch.equal(g, r), name
+
+
+@pytest.mark.gpu
+def test_cuda_meshed_engine_and_trainer_equal_the_local_ones(cuda):
+    import dataclasses
+
+    from repro_torch.configs.wenquxing_snn import WENQUXING_22A_MESH2D
+    from repro_torch.core.trainer import train
+    from repro_torch.data.digits import make_digits
+    from repro_torch.distributed import snn_mesh
+    from repro_torch.engine import SNNEngine, SNNEnginePlan
+
+    dev = torch.device("cuda", 0)
+    grid = snn_mesh.snn_mesh2d(2, 2, devices=[dev] * 4)
+    o = _mesh_operands(dev, 40, 25, 72, 32)
+    for encode in ("kernel", "host"):
+        plan = SNNEnginePlan(threshold=90, leak=3, n_syn=784, encode=encode)
+        local = SNNEngine(plan, device="cuda")
+        meshed = SNNEngine(dataclasses.replace(plan, mesh=grid),
+                           device="cuda")
+        for kw in (dict(windows=o["trains"]),
+                   dict(intensities=o["inten"], seeds=o["seeds"],
+                        n_steps=72, t_total=o["t_total"])):
+            assert torch.equal(meshed.infer(o["weights"], **kw),
+                               local.infer(o["weights"], **kw))
+    # a grid larger than the visible cards raises; named devices do not
+    with pytest.raises(ValueError):
+        SNNEngine(dataclasses.replace(plan, mesh_shape=(
+            torch.cuda.device_count() + 1, 1)), device="cuda")
+    imgs, labels = make_digits(24, seed=5)
+    x = imgs.reshape(24, -1).astype(np.float32)
+    cfg = dataclasses.replace(WENQUXING_22A_MESH2D, n_steps=16, epochs=1)
+    ops.reset_launch_counts()
+    m = train(cfg, x, labels, device="cuda",
+              mesh=snn_mesh.snn_mesh2d(2, 4, devices=[dev] * 8))
+    assert ops.launch_counts()["train_window_batch_encode"] == 8
+    loc = train(dataclasses.replace(cfg, mesh_shape=None), x, labels,
+                device="cuda")
+    assert torch.equal(m.weights, loc.weights)
+    assert torch.equal(m.neuron_class, loc.neuron_class)

@@ -47,7 +47,10 @@ def test_importing_the_serving_stack_loads_no_jax():
             " repro_torch.bench.run, repro_torch.bench.fig4_energy,"
             " repro_torch.bench.fig5_neurons, repro_torch.bench.wexp_sweep,"
             " repro_torch.bench.table1_accuracy,"
-            " repro_torch.bench.table2_resources; "
+            " repro_torch.bench.table2_resources,"
+            " repro_torch.bench.kernels_bench, repro_torch.bench.loadgen_bench,"
+            " repro_torch.bench.plot_history, repro_torch.distributed,"
+            " repro_torch.distributed.snn_mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

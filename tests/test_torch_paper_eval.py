@@ -265,6 +265,9 @@ def test_run_cli_on_the_cpu(tmp_path):
     lines = proc.stdout.splitlines()
     assert lines[0] == "name,us_per_call,derived"
     rows = json.loads(out.read_text())
+    # the file starts with the device row, which names the device
+    assert next(iter(rows)) == "meta/device"
+    assert rows.pop("meta/device")["device"] == "cpu"
     assert set(rows) == {
         "fig4/fused", "fig4/decoupled", "fig4/ratio-decoupled-over-fused",
         "table2/this-work", "table2/odin-crossbar", "table2/paper-ODIN",

@@ -121,8 +121,13 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    against their plain version in float32 (atol = rtol = 1e-4) and
    bfloat16 (3e-2) at gemma3-1b's shapes (B 1, Hq 4, Hkv 1, D 256, T 2,048,
    causal, global and with the 512 window; T 37 and 1,000 with the
-   window), GQA non-causal (B 2, Hq 8, Hkv 2, D 128, T 512) and the
-   starcoder2-3b width (Hq 24, Hkv 2, D 128, T 1,024, causal); in
+   window), GQA non-causal (B 2, Hq 8, Hkv 2, D 128, T 512), the
+   starcoder2-3b width (Hq 24, Hkv 2, D 128, T 1,024, causal) and the
+   LM families' (phase 12): mixtral (Hq 48, Hkv 8, D 128, T 4,608,
+   window 4,096), whisper's encoder (Hq = Hkv = 12, D 64, T 1,500,
+   non-causal) and cross-attention (Tq 64, Tk 1,500, non-causal, k and
+   v views of a projection of their own) and jamba (Hq 64, Hkv 8, D 128,
+   T 1,024, causal); in
    bfloat16 also within 1e-2 of the output's largest magnitude and
    ||kernel - plain|| within 1e-2 of ||plain||; q, k and v as views of
    one fused projection give the same output as contiguous ones.  Timed
@@ -186,7 +191,35 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    package's ``BENCH_kernels.json`` (read, not copied), every kernel the
    rows call launched (``harness_launches``).  Prints the phase's wall
    time.
-12. Prints the kernels' JSON line, then, last,
+12. The LM families, each at full width in bfloat16 (random weights from
+   a seed, depth cut and printed, each model freed before the next),
+   with the launch counts set to 0 before and read after each counted
+   run (flash launches exactly one per attention layer, encoder layer
+   and cross-attention of each prefill; every plain version watched):
+   (a) mixtral-8x22b at 4 layers (all windowed, all MoE) served by
+   ``ServingEngine(n_slots=4, max_len=8192)``, 8 greedy requests of 37
+   to 4,608 prompt tokens (the last two wrap the 4,096-slot rings), 16
+   new tokens each (32 flash launches); prefill ms by prompt length,
+   decode step ms, tokens/s, the card's busy share of a traced prefill
+   and decode step, and one layer's time split into attention (flash
+   inside it) and MoE (expert products against dispatch); then a float32
+   copy (TF32 off): a 1,000-token prefill through the kernel and through
+   the plain attention within 1e-3 of the logits' largest magnitude with
+   the same greedy token (tokens routed to another expert set printed),
+   and 8 teacher-forced decode steps after a 4,200-token prefill against
+   the prefill of the prompt plus the tokens so far, within 1e-3.  (b)
+   grok-1-314b at 2 layers, 2 requests through the engine; (c)
+   jamba-1.5-large-398b at 5 layers (Mamba at 0-3, attention at 4, MoE
+   at 1 and 3), 4 requests of up to 1,024 prompt tokens; (d) rwkv6-7b at
+   full depth, 4 requests of up to 512 (the blocked prefill where 64
+   divides the prompt); (e) whisper-small at full depth, one batch of
+   1,500 frames, a prefill and 16 decode steps through ``Model`` (36
+   flash launches), its cross-attention k and v checked against TMA's
+   alignment rule; (f) internvl2-26b at 2 layers, 256 patches before a
+   64-token prompt, a prefill and 16 decode steps.  For (c)-(f) the
+   prefill through the kernel and through the plain attention give the
+   same greedy token.  Prints the phase's wall time.
+13. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
@@ -267,6 +300,24 @@ PROFILER_TRIES = 5
 CALL_LABEL = "chip_smoke.call"
 
 
+def first_session(run, read, activities):
+    """``read(prof, ran)`` of the first of up to ``PROFILER_TRIES`` fresh
+    profiler sessions, each around one call of ``run`` (``ran`` what it
+    returned), that gives something other than None; None where none
+    does."""
+    from torch.profiler import profile
+
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=activities) as prof:
+            ran = run()
+        got = read(prof, ran)
+        if got is not None:
+            return got
+    return None
+
+
 def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
                 ) -> float:
     """``read(prof)`` of the first profiler session over ``reps`` calls
@@ -275,22 +326,20 @@ def profiled_ms(fn, reps: int, what: str, read, cpu: bool = False
     call from CUDA events around ``reps`` calls back to back (host
     dispatch gaps included), said so on a line of its own.  ``cpu``
     records the host's operations too."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
 
     fn()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
                                             if cpu else [])
-    for attempt in range(PROFILER_TRIES):
-        if attempt:
-            time.sleep(0.5)
-        with profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ms = read(prof)
-        if ms is not None:
-            return ms
+    ms = first_session(run, lambda prof, _: read(prof), activities)
+    if ms is not None:
+        return ms
     ms = events_ms(fn, reps)
     print(f"timing: the profiler recorded no device time of {what} in "
           f"{PROFILER_TRIES} sessions; {ms} ms a call from CUDA events "
@@ -2044,14 +2093,26 @@ FLASH_PALLAS = "src/repro/kernels/flash_attention.py:114"
 # CUDA cores' full-f32 67 TFLOP/s
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 494.7e12 / 3
-# (name, B, Hq, Hkv, D, T, causal, window)
+# (name, B, Hq, Hkv, D, Tq, Tk, causal, window)
 FLASH_SHAPES = (
-    ("gemma-global", 1, 4, 1, 256, 2048, True, None),
-    ("gemma-local", 1, 4, 1, 256, 2048, True, 512),
-    ("ragged-37", 1, 4, 1, 256, 37, True, 512),
-    ("ragged-1000", 1, 4, 1, 256, 1000, True, 512),
-    ("gqa-noncausal", 2, 8, 2, 128, 512, False, None),
-    ("starcoder2-3b", 1, 24, 2, 128, 1024, True, None),
+    ("gemma-global", 1, 4, 1, 256, 2048, 2048, True, None),
+    ("gemma-local", 1, 4, 1, 256, 2048, 2048, True, 512),
+    ("ragged-37", 1, 4, 1, 256, 37, 37, True, 512),
+    ("ragged-1000", 1, 4, 1, 256, 1000, 1000, True, 512),
+    ("gqa-noncausal", 2, 8, 2, 128, 512, 512, False, None),
+    ("starcoder2-3b", 1, 24, 2, 128, 1024, 1024, True, None),
+    # the LM families' (phase 12): mixtral's window at 48/8 heads over
+    # the longest prompt, grok-1's longest prompt, whisper's encoder, its
+    # cross-attention (a 64-token prompt over the 1,500 frames) and its
+    # decoder's self-attention, jamba's attention layer, internvl2's 256
+    # patches before a 64-token prompt
+    ("mixtral", 1, 48, 8, 128, 4608, 4608, True, 4096),
+    ("grok-1", 1, 48, 8, 128, 1500, 1500, True, None),
+    ("whisper-encoder", 1, 12, 12, 64, 1500, 1500, False, None),
+    ("whisper-cross", 1, 12, 12, 64, 64, 1500, False, None),
+    ("whisper-decoder", 1, 12, 12, 64, 64, 64, True, None),
+    ("jamba", 1, 64, 8, 128, 1024, 1024, True, None),
+    ("internvl2", 1, 48, 8, 128, 320, 320, True, None),
 )
 # (dtype, name, atol = rtol, the kernel that runs it): f32 in split TF32
 # (mma.sync), bf16 with wgmma and TMA, both on the tensor cores
@@ -2082,49 +2143,66 @@ def unmasked_pairs(tq: int, tk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_flops(b, hq, d, t, causal, window) -> int:
+def flash_flops(b, hq, d, tq, tk, causal, window) -> int:
     """4 B Hq D flops per unmasked (query, key) pair: both products."""
-    return 4 * b * hq * d * unmasked_pairs(t, t, causal, window)
+    return 4 * b * hq * d * unmasked_pairs(tq, tk, causal, window)
 
 
-def flash_bound(b, hq, hkv, d, t, causal, window, dtype
+def flash_bound(b, hq, hkv, d, tq, tk, causal, window, dtype
                 ) -> tuple[float, str]:
     """Least time (s) of one call: the flops at the card's peak for the
     dtype, against q, k, v and o crossing HBM once."""
-    flops = flash_flops(b, hq, d, t, causal, window)
+    flops = flash_flops(b, hq, d, tq, tk, causal, window)
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
-    moved = (torch.finfo(dtype).bits // 8) * d * (2 * b * hq * t
-                                                 + 2 * b * hkv * t)
+    moved = (torch.finfo(dtype).bits // 8) * d * (2 * b * hq * tq
+                                                 + 2 * b * hkv * tk)
     t_ops, t_bytes = flops / rate, moved / HBM_BYTES_PER_S
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def sdpa_call(q, k, v, causal: bool, window):
     """One ``scaled_dot_product_attention`` call computing the kernel's
-    function (square shapes): the library yardstick."""
+    function (queries the last Tq of the Tk positions): the library
+    yardstick."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window is None:
+    tq, tk = q.shape[2], k.shape[2]
+    if window is None and (tq == tk or not causal):
         return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
-    pos = torch.arange(q.shape[2], device=q.device)[:, None]
-    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
-    mask = kpos > pos - window
+    pos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if window is not None:
+        mask &= kpos > pos - window
     if causal:
         mask &= kpos <= pos
     return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def fused_views(q, k, v):
-    """q, k, v copied into one [B, T, (Hq + 2 Hkv) D] tensor and taken
-    back as the transposed views the model's fused projection gives
-    (``models/layers/attention.py``)."""
-    b, hq, t, d = q.shape
-    hkv = k.shape[1]
-    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, -1) for x in (q, k, v)],
-                    dim=-1)
-    q2, k2, v2 = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
-    return (q2.reshape(b, t, hq, d).transpose(1, 2),
-            k2.reshape(b, t, hkv, d).transpose(1, 2),
-            v2.reshape(b, t, hkv, d).transpose(1, 2))
+    """q, k, v copied into the [B, T, (Hq + 2 Hkv) D] projections the
+    model's attention takes them from (``models/layers/attention.py``),
+    and taken back as the transposed views they give: one projection
+    for self-attention; for cross-attention (Tq != Tk) q from the
+    decoder stream's and k, v from the encoder output's."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+
+    def rows(x):
+        return x.transpose(1, 2).reshape(b, x.shape[2], -1)
+
+    if tq == tk:
+        qkv_q = qkv_kv = torch.cat([rows(q), rows(k), rows(v)], dim=-1)
+    else:
+        qkv_q = torch.cat([rows(q), q.new_zeros((b, tq, 2 * hkv * d))],
+                          dim=-1)
+        qkv_kv = torch.cat([k.new_zeros((b, tk, hq * d)), rows(k), rows(v)],
+                           dim=-1)
+    split = [hq * d, hkv * d, hkv * d]
+    q2 = qkv_q.split(split, dim=-1)[0]
+    _, k2, v2 = qkv_kv.split(split, dim=-1)
+    return (q2.reshape(b, tq, hq, d).transpose(1, 2),
+            k2.reshape(b, tk, hkv, d).transpose(1, 2),
+            v2.reshape(b, tk, hkv, d).transpose(1, 2))
 
 
 def ptxas_report(source: str) -> dict[str, str]:
@@ -2207,6 +2285,31 @@ def check_flash_build() -> None:
                  f"{per_dim}")
 
 
+def flash_held(what: str, got, want, tol: float):
+    """Holds the flash kernel's output ``got`` against the plain
+    version's ``want`` within atol = rtol = ``tol`` and, in bf16, within
+    ``FLASH_BF16_REL`` of the output's largest magnitude and
+    ``FLASH_BF16_NORM``; fails where it is not.  Returns (max |kernel -
+    plain|, largest |plain|, ||kernel - plain|| / ||plain||)."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    norm = float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        fail(f"flash_attention at {what}: max |kernel - plain| {err} "
+             f"exceeds atol = rtol = {tol}")
+    if bf16 and err > FLASH_BF16_REL * top:
+        fail(f"flash_attention at {what}: max |kernel - plain| {err} "
+             f"exceeds {FLASH_BF16_REL} of the output's largest magnitude "
+             f"{top}")
+    if bf16 and norm > FLASH_BF16_NORM:
+        fail(f"flash_attention at {what}: ||kernel - plain|| / ||plain|| = "
+             f"{norm} exceeds {FLASH_BF16_NORM}")
+    return err, top, norm
+
+
 def phase_flash_kernel() -> dict:
     """Phase 9a: the bf16 kernel's build checked, then the flash kernels
     against their plain version on the card at each shape in both dtypes,
@@ -2217,32 +2320,18 @@ def phase_flash_kernel() -> dict:
     check_flash_build()
     dev = torch.device("cuda")
     out = {}
-    for name, b, hq, hkv, d, t, causal, window in FLASH_SHAPES:
-        rng = np.random.default_rng(t + d)
+    for name, b, hq, hkv, d, tq, tk, causal, window in FLASH_SHAPES:
+        rng = np.random.default_rng(tk + d)
         base = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-                .to(dev) for s in ((b, hq, t, d), (b, hkv, t, d),
-                                   (b, hkv, t, d))]
+                .to(dev) for s in ((b, hq, tq, d), (b, hkv, tk, d),
+                                   (b, hkv, tk, d))]
         for dtype, dname, tol, symbol in FLASH_DTYPES:
             q, k, v = (x.to(dtype) for x in base)
             kw = dict(causal=causal, window=window)
             got = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             want = flash_attention(q, k, v, backend="ref", **kw)
-            err = float((got.float() - want.float()).abs().max())
-            top = float(want.float().abs().max())
-            norm = float(torch.linalg.vector_norm(got.float() - want.float())
-                         / torch.linalg.vector_norm(want.float()))
-            if not torch.allclose(got.float(), want.float(), atol=tol,
-                                  rtol=tol):
-                fail(f"flash_attention at {name} {dname}: max |kernel - "
-                     f"plain| {err} exceeds atol = rtol = {tol}")
-            if dtype == torch.bfloat16 and err > FLASH_BF16_REL * top:
-                fail(f"flash_attention at {name} {dname}: max |kernel - "
-                     f"plain| {err} exceeds {FLASH_BF16_REL} of the "
-                     f"output's largest magnitude {top}")
-            if dtype == torch.bfloat16 and norm > FLASH_BF16_NORM:
-                fail(f"flash_attention at {name} {dname}: ||kernel - plain||"
-                     f" / ||plain|| = {norm} exceeds {FLASH_BF16_NORM}")
+            err, top, norm = flash_held(f"{name} {dname}", got, want, tol)
             if not torch.equal(flash_attention(*fused_views(q, k, v), **kw),
                                got):
                 fail(f"flash_attention at {name} {dname}: the views of a "
@@ -2258,9 +2347,10 @@ def phase_flash_kernel() -> dict:
             library_ms = call_device_ms(lib, 20, f"sdpa at {name} {dname}")
             plain_call_ms, library_call_ms = time_ms(plain, 5), \
                 time_ms(lib, 20)
-            b_s, b_by = flash_bound(b, hq, hkv, d, t, causal, window, dtype)
-            shape = (f"B={b} Hq={hq} Hkv={hkv} D={d} T={t} causal={causal} "
-                     f"window={window} {dname}")
+            b_s, b_by = flash_bound(b, hq, hkv, d, tq, tk, causal, window,
+                                    dtype)
+            shape = (f"B={b} Hq={hq} Hkv={hkv} D={d} Tq={tq} Tk={tk} "
+                     f"causal={causal} window={window} {dname}")
             print(f"kernel flash_attention @ {name} ({shape}): within "
                   f"{tol} max_abs_err={err} (largest |plain| {top}; "
                   f"||kernel - plain|| / ||plain|| {norm}; views of a fused "
@@ -2269,7 +2359,8 @@ def phase_flash_kernel() -> dict:
                   f"with its host dispatch) library_ms={library_ms} "
                   f"({library_call_ms} a call; sdpa, max |sdpa - plain| "
                   f"{lib_err}) bound_ms={1e3 * b_s} ({b_by}); {symbol} "
-                  f"{flash_flops(b, hq, d, t, causal, window) / ms / 1e9} "
+                  f"{flash_flops(b, hq, d, tq, tk, causal, window) / ms / 1e9}"
+                  f" "
                   f"TFLOP/s, kernel/bound {ms / (1e3 * b_s)}, kernel/sdpa "
                   f"{ms / library_ms}", flush=True)
             out[f"{name}-{dname}"] = dict(
@@ -2280,24 +2371,76 @@ def phase_flash_kernel() -> dict:
 
 def busy_share(fn) -> tuple[float, float, str]:
     """(wall us, card busy share, heaviest device work) of one call of
-    ``fn`` under ``torch.profiler``."""
+    ``fn`` under ``torch.profiler``, in the first session that records
+    device time (``first_session``; none does: the wall and the share
+    are nan, and the work says so)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def run():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    devs = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in devs)
-    top = "; ".join(f"{e.key[:90]} {e.count}x {e.self_device_time_total} us"
-                    for e in sorted(devs, key=lambda e:
-                                    -e.self_device_time_total)[:5])
-    return wall_us, dev_us / wall_us, top
+        return 1e6 * (time.perf_counter() - t0)
+
+    def read(prof, wall_us):
+        devs = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in devs)
+        if dev_us <= 0:
+            return None
+        top = "; ".join(
+            f"{e.key[:90]} {e.count}x {e.self_device_time_total} us"
+            for e in sorted(devs, key=lambda e:
+                            -e.self_device_time_total)[:5])
+        return wall_us, dev_us / wall_us, top
+
+    torch.cuda.synchronize()
+    got = first_session(run, read, [ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+    return got or (float("nan"), float("nan"),
+                   f"the profiler recorded no device time in "
+                   f"{PROFILER_TRIES} sessions")
+
+
+def serve_counted(model, eng, reqs):
+    """Serve ``reqs`` on ``eng`` with the launch counts set to 0 just
+    before and read just after, every plain version watched (any call
+    fails), each prefill and decode step timed on the host's clock
+    around work that ends in a synchronize.  Returns (launches, wall s,
+    prefill ms by prompt length, decode step ms)."""
+    from repro_torch.kernels import ops
+
+    prefill_ms, decode_ms = {}, []
+
+    def timed(fn, record):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record(args, 1e3 * (time.perf_counter() - t))
+            return result
+        return call
+
+    model.prefill = timed(model.prefill, lambda a, ms: prefill_ms.__setitem__(
+        a[0].shape[1], ms))
+    model.decode_step = timed(model.decode_step,
+                              lambda a, ms: decode_ms.append(ms))
+    try:
+        ops.reset_launch_counts()
+        with counting_plain_versions() as plain:
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        del model.prefill, model.decode_step
+    if sum(plain.values()):
+        fail(f"serving {model.cfg.name} reached plain versions: "
+             f"{dict(plain)}")
+    return launches, wall, prefill_ms, decode_ms
 
 
 def phase_lm_slice():
@@ -2305,7 +2448,6 @@ def phase_lm_slice():
     the launch counts set to 0 before and read after, every plain
     attention function watched.  Returns (launches, model)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.serving import Request, ServingEngine
 
@@ -2330,32 +2472,7 @@ def phase_lm_slice():
     reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
             for i, p in enumerate(prompts)]
     eng = ServingEngine(model, n_slots=4, max_len=4096)
-    prefill_ms, decode_ms = {}, []
-
-    def timed(fn, record):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            result = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            record(args, 1e3 * (time.perf_counter() - t))
-            return result
-        return call
-
-    model.prefill = timed(model.prefill, lambda a, ms: prefill_ms.__setitem__(
-        a[0].shape[1], ms))
-    model.decode_step = timed(model.decode_step,
-                              lambda a, ms: decode_ms.append(ms))
-    ops.reset_launch_counts()
-    with counting_plain_versions() as plain:
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    del model.prefill, model.decode_step
-    if sum(plain.values()):
-        fail(f"the LM slice reached plain versions: {dict(plain)}")
+    launches, wall, prefill_ms, decode_ms = serve_counted(model, eng, reqs)
     for r in reqs:
         if not (r.done and len(r.output) == LM_NEW_TOKENS
                 and all(0 <= x < cfg.vocab_size for x in r.output)):
@@ -2394,6 +2511,33 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def bf16_logits_held(what: str, kern16, plain16, plain32) -> None:
+    """A bf16 prefill's logits through the kernel (``kern16``) against
+    the plain attention's (``plain16``): the same greedy token, and
+    within twice what bf16 itself moves the logits (``plain16`` against
+    a float32 copy's plain prefill, ``plain32``), both of the largest
+    |f32 logit|.  Printed; fails where it does not hold."""
+    def dist(a, b) -> float:
+        return float((a - b).abs().max() / plain32.abs().max())
+
+    # bf16's own reach is how far the plain bf16 prefill lies from the
+    # f32 one.  A kernel whose bf16 prefill lies no farther from the f32
+    # one is within twice that of the plain bf16 prefill (the triangle
+    # inequality): that is the limit.
+    err16, bf16_err = dist(kern16, plain16), dist(plain16, plain32)
+    same16 = int(kern16.argmax()) == int(plain16.argmax())
+    top2 = plain16[0].topk(2).values
+    print(f"{what}: max |diff| / max |f32 logit| = {err16} (limit twice "
+          f"the plain bf16 prefill's from the f32 one, {bf16_err}; the "
+          f"kernel's from the f32 one {dist(kern16, plain32)}), greedy "
+          f"token equal: {same16} (plain's top two logits "
+          f"{top2.tolist()})", flush=True)
+    if err16 > 2 * bf16_err or not same16:
+        fail(f"{what}: the bf16 prefill through the kernel differs from "
+             f"the plain attention's by more than bf16's own rounding "
+             f"allows")
+
+
 def phase_lm_correctness(model) -> None:
     """Phase 9c: the slice's own bf16 model, the kernel's prefill against
     the plain attention's: the same greedy token, and within twice what
@@ -2423,25 +2567,8 @@ def phase_lm_correctness(model) -> None:
         m32 = model.cast(torch.float32)
         kern, plain = prefill_both(m32)
 
-        def dist(a, b) -> float:
-            return float((a - b).abs().max() / plain.abs().max())
-
-        # bf16's own reach is how far the plain bf16 prefill lies from
-        # the f32 one.  A kernel whose bf16 prefill lies no farther from
-        # the f32 one is within twice that of the plain bf16 prefill (the
-        # triangle inequality): that is the limit.
-        err16, bf16_err = dist(kern16, plain16), dist(plain16, plain)
-        same16 = int(kern16.argmax()) == int(plain16.argmax())
-        top2 = plain16[0].topk(2).values
-        print(f"lm check: bf16 prefill of 1000 tokens, kernel vs plain "
-              f"attention: max |diff| / max |f32 logit| = {err16} (limit "
-              f"twice the plain bf16 prefill's from the f32 one, "
-              f"{bf16_err}; the kernel's from the f32 one "
-              f"{dist(kern16, plain)}), greedy token equal: {same16} "
-              f"(plain's top two logits {top2.tolist()})", flush=True)
-        if err16 > 2 * bf16_err or not same16:
-            fail("the bf16 prefill through the kernel differs from the "
-                 "plain attention's by more than bf16's own rounding allows")
+        bf16_logits_held("lm check: bf16 prefill of 1000 tokens, kernel vs "
+                         "plain attention", kern16, plain16, plain)
         err = rel_err(kern, plain)
         same = int(kern.argmax()) == int(plain.argmax())
         print(f"lm check: f32 prefill of 1000 tokens, kernel vs plain "
@@ -2806,6 +2933,565 @@ def phase_harness(card: str) -> dict:
     return launches
 
 
+# --- the LM families: MoE, Mamba hybrid, RWKV6, enc-dec, vision prefix -----
+
+# (a) mixtral-8x22b's prompts (the longest two wrap the 4,096-slot ring of
+# every layer) and new tokens a request
+FAMILY_PROMPTS = (37, 512, 1000, 2048, 3000, 4095, 4097, 4608)
+FAMILY_NEW_TOKENS = 16
+# (a)'s float32 checks: the kernel-vs-plain prefill's prompt, and the
+# prompt teacher-forced decode starts from
+FAMILY_CHECK_PROMPT = 1000
+FAMILY_DECODE_PROMPT = 4200
+
+
+def family_model(arch: str, n_layers=None, **kw):
+    """``arch`` at full width in bfloat16 on the card, random weights from
+    seed 0, its depth cut to ``n_layers`` (None: full depth); prints
+    the cut and the layer mix."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Model
+
+    full = get_config(arch)
+    cfg = (full if n_layers is None
+           else dataclasses.replace(full, n_layers=n_layers))
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0, **kw)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    mix = collections.Counter(f"{k.mixer}/{k.ffn}" for k in model.kinds)
+    enc = f" + {cfg.encoder_layers} encoder" if cfg.is_enc_dec else ""
+    print(f"lm families: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top {cfg.top_k}, window "
+          f"{cfg.window}, vocab {cfg.vocab_size}); depth {cfg.n_layers}"
+          f"{enc} layers (the config has {full.n_layers}{enc}): layers "
+          f"{dict(mix)}; {n_params} parameters, {gb} GB in {model.dtype}, "
+          f"drawn in {time.perf_counter() - t0} s", flush=True)
+    return model
+
+
+def flash_layers(model) -> int:
+    """Flash launches one prefill makes: one per attention layer, encoder
+    layer and cross-attention."""
+    kinds = model.kinds + model.enc_kinds
+    return (sum(k.mixer.startswith("attn") for k in kinds)
+            + sum(k.cross_attn for k in kinds))
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Records the experts (int[N, k]) of every MoE routing made while
+    the block runs, in order."""
+    from repro_torch.models.layers import moe
+
+    routes = []
+    route = moe.route
+
+    def recorded(params, xf, cfg):
+        out = route(params, xf, cfg)
+        routes.append(out[2])
+        return out
+
+    moe.route = recorded
+    try:
+        yield routes
+    finally:
+        moe.route = route
+
+
+def route_flips(a: list, b: list) -> int:
+    """Tokens whose set of experts differs between two runs' routings."""
+    return sum(int((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                   .any(dim=-1).sum()) for x, y in zip(a, b))
+
+
+def route_drops(model, routes: list) -> int:
+    """(token, slot)s past their expert's capacity over ``routes``."""
+    from repro_torch.models.layers import moe
+
+    mcfg = model.moe_cfg()
+    return sum(int((moe.slots(idx, mcfg.n_experts)[1]
+                    >= moe.capacity(idx.shape[0], mcfg)).sum())
+               for idx in routes)
+
+
+def check_tokens(what: str, logits, tokens, vocab: int) -> None:
+    if not (torch.isfinite(logits).all() and
+            all(0 <= t < vocab for t in tokens)):
+        fail(f"{what}: non-finite logits or tokens outside the vocabulary")
+
+
+@contextlib.contextmanager
+def recording_flash():
+    """Records (q, k, v, keywords, output) of every flash launch the
+    model's attention makes while the block runs, in order."""
+    from repro_torch.models.layers import attention
+
+    launches = []
+    flash = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        launches.append((q, k, v, kw, out))
+        return out
+
+    attention.flash_attention = recorded
+    try:
+        yield launches
+    finally:
+        attention.flash_attention = flash
+
+
+def hold_prefill(model, prompt, max_len: int, f32: bool, **front) -> None:
+    """The model's bf16 prefill through the kernel against the plain
+    attention's.  Each flash launch of the kernel's prefill is held
+    against the plain version on its own inputs (``flash_held``, phase
+    9a's bf16 limits).  The last-token logits: with no launch, equal;
+    where a float32 copy fits beside the model (``f32``), phase 9c's
+    rule (``bf16_logits_held``), and the copy's prefill through the
+    kernel against its plain attention's within ``LM_TOL``; else the
+    same greedy token.  MoE route differences between runs printed."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, vocab = model.cfg.name, model.cfg.vocab_size   # padding cut off
+    what = (f"lm families: {name} bf16 prefill of {prompt.shape[1]} "
+            f"tokens, kernel vs plain attention")
+    tol = {dname: t for _, dname, t, _ in FLASH_DTYPES}["bf16"]
+    with torch.inference_mode():
+        with recording_routes() as routes, recording_flash() as launches:
+            kern = model.prefill(prompt, max_len, **front)[0][:, :vocab]
+            n_kern = len(routes)
+            model.attn_backend = "ref"
+            try:
+                plain = model.prefill(prompt, max_len, **front)[0][:, :vocab]
+            finally:
+                model.attn_backend = "kernel"
+        held = [flash_held(f"{name}'s launch {i} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {kw})", out,
+                           flash_attention(q, k, v, backend="ref", **kw), tol)
+                for i, (q, k, v, kw, out) in enumerate(launches)]
+        n_launches = len(launches)
+        del launches
+        print(f"{what}: each of its {n_launches} flash launches held "
+              f"against the plain version on its own inputs within {tol}, "
+              f"{FLASH_BF16_REL} of the largest |plain| and "
+              f"{FLASH_BF16_NORM} in norm: max |kernel - plain| per launch "
+              f"{[e for e, _, _ in held]}, largest ||kernel - plain|| / "
+              f"||plain|| {max((n for _, _, n in held), default=0.0)}; "
+              f"tokens routed to another expert set "
+              f"{route_flips(routes[:n_kern], routes[n_kern:])} of "
+              f"{sum(int(r.shape[0]) for r in routes[:n_kern])}", flush=True)
+        kern, plain = kern.float(), plain.float()
+        if not n_launches:
+            same = torch.equal(kern, plain)
+            print(f"{what}: no flash launch, logits equal: {same}",
+                  flush=True)
+            if not same:
+                fail(f"{name}: a prefill without attention gives other "
+                     f"logits through the kernel than the plain path")
+        elif f32:
+            m32 = model.cast(torch.float32)
+            with recording_routes() as routes:
+                kern32 = m32.prefill(prompt, max_len, **front)[0][:, :vocab]
+                n_kern = len(routes)
+                m32.attn_backend = "ref"
+                plain32 = m32.prefill(prompt, max_len, **front
+                                      )[0][:, :vocab]
+            del m32
+            torch.cuda.empty_cache()
+            bf16_logits_held(what, kern, plain, plain32)
+            # a route that flips between bf16 and f32 moves the logits far
+            # more than rounding does (MoE), so the f32 copy's own kernel
+            # against its plain attention is held too, as mixtral's is
+            err = rel_err(kern32, plain32)
+            same = int(kern32.argmax()) == int(plain32.argmax())
+            print(f"lm families: {name} f32 prefill of {prompt.shape[1]} "
+                  f"tokens, kernel vs plain attention: max |diff| / max "
+                  f"|logit| = {err}, greedy token equal: {same}; tokens "
+                  f"routed to another expert set "
+                  f"{route_flips(routes[:n_kern], routes[n_kern:])}",
+                  flush=True)
+            if err > LM_TOL or not same:
+                fail(f"{name}'s f32 prefill through the kernel differs from "
+                     f"the plain attention's")
+        else:
+            same = int(kern.argmax()) == int(plain.argmax())
+            print(f"{what}: greedy token equal: {same}; max |diff| / max "
+                  f"|logit| {rel_err(kern, plain)}; plain's top two logits "
+                  f"{plain[0].topk(2).values.tolist()}", flush=True)
+            if not same:
+                fail(f"{name}: the prefill through the kernel gives another "
+                     f"greedy token than the plain attention's")
+
+
+def serve_family(model, lengths, new_tokens: int, n_slots: int,
+                 max_len: int, seed: int) -> dict:
+    """Greedy requests of ``lengths`` prompt tokens through
+    ``ServingEngine``, counted (``serve_counted``); flash launches must
+    be ``flash_layers`` a prefill.  Returns (launches, the engine)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    # warm-up outside the counted run (cuBLAS handles, allocator)
+    ServingEngine(model, n_slots=n_slots, max_len=max_len).run(
+        [Request(rid=-1, prompt=[1, 2, 3, 4, 5], max_new_tokens=2)])
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .tolist(), max_new_tokens=new_tokens)
+            for i, n in enumerate(lengths)]
+    eng = ServingEngine(model, n_slots=n_slots, max_len=max_len)
+    with recording_routes() as routes:
+        launches, wall, prefill_ms, decode_ms = serve_counted(model, eng,
+                                                              reqs)
+    for r in reqs:
+        if not (r.done and len(r.output) == new_tokens
+                and all(0 <= x < cfg.vocab_size for x in r.output)):
+            fail(f"{cfg.name}: request {r.rid} ({len(r.prompt)} prompt "
+                 f"tokens) ended done={r.done} with {len(r.output)} tokens")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = flash_layers(model) * len(reqs)
+    if launches != want:
+        fail(f"{cfg.name} served with launches {launches}, expected {want}")
+    drops = route_drops(model, routes) if cfg.n_experts else 0
+    print(f"lm families: {cfg.name} served {len(reqs)} requests x "
+          f"{new_tokens} tokens ({n_slots} slots) in {wall} s = "
+          f"{eng.tokens_out / wall} tokens/s ({eng.steps} engine steps); "
+          f"flash_attention launches {launches['flash_attention']} = "
+          f"{flash_layers(model)} x {len(reqs)} prefills; plain attention "
+          f"reached: 0; MoE (token, slot)s dropped past capacity: {drops}",
+          flush=True)
+    print(f"lm families: {cfg.name} prefill ms by prompt length: "
+          + "; ".join(f"{n} {prefill_ms[n]}" for n in lengths), flush=True)
+    print(f"lm families: {cfg.name} decode step ms ({n_slots} slots): "
+          f"{step_summary(decode_ms)}", flush=True)
+    return launches, eng
+
+
+def drive_family(model, prompt, steps: int, max_len: int, **front):
+    """A prefill and ``steps`` greedy decode steps through ``Model``,
+    counted as ``serve_counted`` counts; flash launches must be
+    ``flash_layers``.  Returns (launches, the prefill's cache)."""
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    decode_ms = []
+    with torch.inference_mode():
+        model.prefill(prompt, max_len, **front)          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with counting_plain_versions() as plain:
+            t0 = time.perf_counter()
+            logits, cache, clen = model.prefill(prompt, max_len, **front)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            enc_out = cache.get("enc_out")
+            out = [int(logits.argmax())]
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(
+                    torch.tensor([[out[-1]]], device=prompt.device), cache,
+                    clen)
+                clen += 1
+                out.append(int(logits.argmax()))
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = ops.launch_counts()
+    if sum(plain.values()):
+        fail(f"{cfg.name} reached plain versions: {dict(plain)}")
+    check_tokens(cfg.name, logits, out, cfg.vocab_size)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = flash_layers(model)
+    if launches != want:
+        fail(f"{cfg.name} launched {launches}, expected {want}")
+    print(f"lm families: {cfg.name} prefill of {clen - steps} positions "
+          f"{prefill_ms} ms, then {steps} decode steps (ms): "
+          f"{step_summary(decode_ms)}; flash_attention launches "
+          f"{launches['flash_attention']}; plain attention reached: 0; "
+          f"tokens {out}", flush=True)
+    return launches, enc_out
+
+
+def mixtral_breakdown(model, eng) -> None:
+    """Where one mixtral layer's prefill (the longest prompt) and decode
+    step (4 slots) spend their time: the flash kernel inside the
+    attention layer, and the MoE's expert products (``moe.experts``, the
+    function ``moe.forward`` calls) against its dispatch (route, places, scatter, gather,
+    combine: the rest of its time).  CUDA events around calls back to
+    back (host dispatch gaps included)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import attention as attn
+    from repro_torch.models.layers import moe
+
+    block = model.layers[0]
+    cfg, mcfg, acfg = model.cfg, model.moe_cfg(), model.attn_cfg(
+        model.layers[0].kind)
+    t = FAMILY_PROMPTS[-1]
+    rng = np.random.default_rng(24)
+    dev = model.device
+    with torch.inference_mode():
+        x = model._embed(torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                       (1, t))).to(dev))
+        pos = torch.arange(t, device=dev)
+        layer_ms = events_ms(lambda: model._apply_sublayer(
+            block, x, positions=pos, cache_max_len=8192), 3)
+        h = model._norm_apply(block.ln1, x)
+        attn_ms = events_ms(lambda: attn.forward(block.mixer, h, acfg,
+                                                 positions=pos), 5)
+        q, k, v = attn._split_qkv(block.mixer, h, acfg)
+        flash_ms = events_ms(lambda: flash_attention(
+            q, k, v, window=acfg.window), 5)
+        h2 = model._norm_apply(block.ln2, x)
+        moe_ms = events_ms(lambda: moe.forward(block.ffn, h2, mcfg), 5)
+
+        buf = torch.randn((mcfg.n_experts, moe.capacity(t, mcfg),
+                           cfg.d_model), device=dev, dtype=model.dtype)
+        experts_ms = events_ms(lambda: moe.experts(block.ffn, buf), 5)
+        hd = h2[:, -4:].reshape(4, 1, cfg.d_model)
+        moe_dec_ms = events_ms(lambda: moe.forward(block.ffn, hd, mcfg), 20)
+        bufd = buf[:, :moe.capacity(4, mcfg)]
+        experts_dec_ms = events_ms(lambda: moe.experts(block.ffn, bufd),
+                                   20)
+        kv = {n: c.clone() for n, c in eng.cache["decoder"][0]["kv"].items()}
+        clen = torch.from_numpy(eng.cache_len).to(dev)
+        dec_attn_ms = events_ms(lambda: attn.decode_step(
+            block.mixer, hd, kv, clen, acfg), 20)
+    print(f"lm families: mixtral layer 0, prefill of {t} tokens: layer "
+          f"{layer_ms} ms = attention {attn_ms} ms (flash_attention "
+          f"{flash_ms} ms of it) + MoE {moe_ms} ms (expert products "
+          f"{experts_ms} ms over [{mcfg.n_experts}, "
+          f"{moe.capacity(t, mcfg)}, {cfg.d_model}], dispatch "
+          f"{moe_ms - experts_ms} ms); decode step (4 slots): attention "
+          f"{dec_attn_ms} ms, MoE {moe_dec_ms} ms (expert products "
+          f"{experts_dec_ms} ms over [{mcfg.n_experts}, "
+          f"{moe.capacity(4, mcfg)}, {cfg.d_model}]: every expert's "
+          f"weights read; dispatch {moe_dec_ms - experts_dec_ms} ms); CUDA "
+          f"events, host dispatch gaps included", flush=True)
+
+
+def mixtral_f32_checks(m32) -> None:
+    """(a)'s float32 copy, TF32 off: a prefill through the kernel against
+    the plain attention's within ``LM_TOL`` of the logits' largest
+    magnitude with the same greedy token (route differences and drops
+    printed), then 8 teacher-forced decode steps after a prefill that
+    wraps the rings against the prefill of the prompt plus the tokens
+    so far: printed at the published capacity factor, held within
+    ``LM_TOL`` at one no expert can overflow."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vocab = m32.cfg.vocab_size
+    rng = np.random.default_rng(25)
+    dev = m32.device
+    prompt = torch.from_numpy(rng.integers(0, vocab, (1, FAMILY_CHECK_PROMPT))
+                              ).to(dev)
+    with torch.inference_mode(), recording_routes() as routes:
+        kern, _, _ = m32.prefill(prompt, 8192)
+        n_kern = len(routes)
+        m32.attn_backend = "ref"
+        try:
+            plain, _, _ = m32.prefill(prompt, 8192)
+        finally:
+            m32.attn_backend = "kernel"
+        err = rel_err(kern, plain)
+        same = int(kern.argmax()) == int(plain.argmax())
+        print(f"lm families: mixtral f32 prefill of {FAMILY_CHECK_PROMPT} "
+              f"tokens, kernel vs plain attention: max |diff| / max |logit| "
+              f"= {err}, greedy token equal: {same}; tokens routed to "
+              f"another top-2 expert set {route_flips(routes[:n_kern], routes[n_kern:])}"
+              f" of {FAMILY_CHECK_PROMPT} x {m32.cfg.n_layers} layers; "
+              f"(token, slot)s dropped past capacity {route_drops(m32, routes[:n_kern])}"
+              f" / {route_drops(m32, routes[n_kern:])}", flush=True)
+        if err > LM_TOL or not same:
+            fail("mixtral's f32 prefill through the kernel differs from the "
+                 "plain attention's")
+
+        prompt = torch.from_numpy(rng.integers(
+            0, vocab, (1, FAMILY_DECODE_PROMPT))).to(dev)
+
+        def teacher_forced():
+            """8 decode steps after the prompt's prefill against the
+            prefill of the prompt plus the tokens so far: (errors, greedy
+            agreements, (token, slot)s each prefill dropped)."""
+            toks = prompt
+            logits, cache, clen = m32.prefill(toks, 8192)
+            errs, agree, drops = [], 0, []
+            for _ in range(8):
+                nxt = logits.argmax(dim=-1)[:, None]
+                toks = torch.cat([toks, nxt], dim=1)
+                logits, cache = m32.decode_step(nxt, cache, clen)
+                clen += 1
+                routes.clear()
+                want, _, _ = m32.prefill(toks, 8192)
+                drops.append(route_drops(m32, routes))
+                errs.append(rel_err(logits, want))
+                agree += int(logits.argmax()) == int(want.argmax())
+            return errs, agree, drops
+
+        # at the published capacity a prefill drops the (token, slot)s
+        # past an expert's capacity, and its capacity grows with the
+        # prompt (so earlier tokens' drops move), while a one-token
+        # decode step drops none: the two differ wherever a prefill
+        # drops, as the JAX package's do.  Printed, not held.
+        errs, agree, drops = teacher_forced()
+        print(f"lm families: mixtral f32 teacher-forced decode after a "
+              f"{FAMILY_DECODE_PROMPT}-token prefill (4,096-slot rings "
+              f"wrapped), capacity factor {m32.cfg.capacity_factor}: 8 "
+              f"steps vs prefill of the prompt plus the tokens so far: max "
+              f"|diff| / max |logit| per step {errs}; greedy equal on "
+              f"{agree} of 8; (token, slot)s each prefill dropped past "
+              f"capacity {drops} (not held: a prefill that drops differs "
+              f"from decode by design)", flush=True)
+        # held: the same with a capacity no expert can overflow (E / k:
+        # every expert takes all N tokens), where the MoE is per token
+        cfg = m32.cfg
+        m32.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        try:
+            errs, agree, drops = teacher_forced()
+        finally:
+            m32.cfg = cfg
+        print(f"lm families: mixtral f32 teacher-forced decode, the same "
+              f"with capacity factor {cfg.n_experts / cfg.top_k} (no "
+              f"drops): max |diff| / max |logit| per step {errs}; greedy "
+              f"equal on {agree} of 8; (token, slot)s dropped {drops}",
+              flush=True)
+        if max(errs) > LM_TOL or any(drops):
+            fail("mixtral's teacher-forced decode differs from prefill")
+
+
+def phase_lm_families() -> tuple[dict, dict]:
+    """Phase 12: the LM families at full width in bfloat16 on the card,
+    depth cut (printed), random weights from a seed; each model freed
+    before the next.  Returns (every kernel's launches summed over the
+    counted runs, flash launches by model)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    total, by_model = collections.Counter(), {}
+
+    def add(name, launches):
+        total.update(launches)
+        by_model[name] = launches["flash_attention"]
+
+    def served(name, model, *args, **kw):
+        launches, eng = serve_family(model, *args, **kw)
+        add(name, launches)
+        return eng
+
+    # (a) mixtral-8x22b, the slice's model: all layers windowed and MoE
+    model = family_model("mixtral-8x22b", 4)
+    eng = served("mixtral-8x22b", model, FAMILY_PROMPTS, FAMILY_NEW_TOKENS,
+                 4, 8192, seed=22)
+    dev = model.device
+    with torch.inference_mode():
+        toks = torch.from_numpy(np.random.default_rng(26).integers(
+            0, model.cfg.vocab_size, (1, FAMILY_PROMPTS[-1]))).to(dev)
+        wall_us, share, top = busy_share(lambda: model.prefill(toks, 8192))
+        print(f"lm families trace: mixtral prefill of {toks.shape[1]} "
+              f"tokens: wall {wall_us} us, card busy {share} of it; device "
+              f"work: {top}", flush=True)
+        last = torch.from_numpy(eng.last_token[:, None]).to(dev)
+        clen = torch.from_numpy(eng.cache_len).to(dev)
+        cache = {"decoder": [{kind: {n: c.clone() for n, c in t.items()}
+                              for kind, t in layer.items()}
+                             for layer in eng.cache["decoder"]]}
+        wall_us, share, top = busy_share(
+            lambda: model.decode_step(last, cache, clen))
+        print(f"lm families trace: mixtral decode step (4 slots): wall "
+              f"{wall_us} us, card busy {share} of it; device work: {top}",
+              flush=True)
+        del cache
+    mixtral_breakdown(model, eng)
+    m32 = model.cast(torch.float32)
+    del eng, model
+    torch.cuda.empty_cache()
+    mixtral_f32_checks(m32)
+    del m32
+    torch.cuda.empty_cache()
+
+    # (b) grok-1-314b: MoE with full attention
+    model = family_model("grok-1-314b", 2)
+    served("grok-1-314b", model, (100, 1500), 8, 2, 2048, seed=27)
+    hold_prefill(model, torch.from_numpy(np.random.default_rng(34).integers(
+        0, model.cfg.vocab_size, (1, 1500))).to(model.device), 2048, f32=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) jamba-1.5-large-398b: mamba at 0-3, attention at 4, MoE at 1, 3
+    model = family_model("jamba-1.5-large-398b", 5)
+    dev = model.device
+    served("jamba-1.5-large-398b", model, (37, 300, 700, 1024), 8, 4, 2048,
+           seed=28)
+    rng = np.random.default_rng(29)
+    # its float32 copy (96 GB) does not fit on the card: its one launch
+    # and greedy token are held
+    hold_prefill(model, torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (1, 1024))).to(dev), 2048, f32=False)
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) rwkv6-7b at full depth: no attention; blocked prefill where 64
+    # divides the prompt
+    model = family_model("rwkv6-7b", rwkv_chunk=64)
+    dev = model.device
+    served("rwkv6-7b", model, (64, 128, 200, 512), 8, 4, 1024, seed=30)
+    rng = np.random.default_rng(31)
+    hold_prefill(model, torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (1, 512))).to(dev), 1024, f32=False)
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) whisper-small at full depth: one batch of 1,500 frames
+    from repro_torch.kernels.flash_attention import _strides
+    from repro_torch.models.layers import attention as attn
+
+    model = family_model("whisper-small")
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(32)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, cfg.frontend_len, cfg.d_model), dtype=np.float32)).to(dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))
+                              ).to(dev)
+    launches, enc_out = drive_family(model, prompt, 16, 128, frames=frames)
+    add("whisper-small", launches)
+    block = model.layers[0]
+    with torch.inference_mode():
+        _, k, v = attn._split_qkv(block.cross, enc_out,
+                                  model.attn_cfg(block.kind, False))
+    aligned = all(t.data_ptr() % 16 == 0 and all(s % 8 == 0
+                                                 for s in _strides(t))
+                  for t in (k, v))
+    print(f"lm families: whisper cross-attention k, v: views of the "
+          f"encoder output's projection, bases {k.data_ptr() % 16} and "
+          f"{v.data_ptr() % 16} bytes off 16, element strides "
+          f"{_strides(k)} (TMA: 16-byte bases, strides of whole 16 bytes):"
+          f" {aligned}", flush=True)
+    if not aligned:
+        fail("whisper's cross-attention k, v break the TMA alignment rule")
+    hold_prefill(model, prompt, 128, f32=True, frames=frames)
+    del model, enc_out, k, v
+    torch.cuda.empty_cache()
+
+    # (f) internvl2-26b: 256 patches before a 64-token prompt
+    model = family_model("internvl2-26b", 2)
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(33)
+    patches = torch.from_numpy(rng.standard_normal(
+        (1, cfg.frontend_len, cfg.d_model), dtype=np.float32)).to(dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))
+                              ).to(dev)
+    launches, _ = drive_family(model, prompt, 16, 512, patches=patches)
+    add("internvl2-26b", launches)
+    hold_prefill(model, prompt, 512, f32=True, patches=patches)
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"lm families: flash_attention launches by model {by_model}; "
+          f"phase wall {time.perf_counter() - t_phase} s", flush=True)
+    return dict(total), by_model
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2879,7 +3565,11 @@ def main() -> None:
     harness_launches = phase_harness(card)
     print(f"phase 11: wall {time.perf_counter() - t_phase} s", flush=True)
 
-    # phase 12: the kernels' JSON line, then the last line
+    # phase 12: the LM families (MoE, Mamba hybrid, RWKV6, enc-dec,
+    # vision prefix) at full width, depth cut
+    family_launches, family_by_model = phase_lm_families()
+
+    # phase 13: the kernels' JSON line, then the last line
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -2916,6 +3606,7 @@ def main() -> None:
         entry["paper_launches"] = paper_launches[kname]
         entry["mesh_launches"] = mesh_launches[kname]
         entry["harness_launches"] = harness_launches[kname]
+        entry["lm_family_launches"] = family_launches.get(kname, 0)
         if kname == "train_window_batch_encode":
             # the trainer's launches are the stream form: its time per
             # launch of 8 samples leads, the one-sample launch beside it
@@ -2952,6 +3643,7 @@ def main() -> None:
             "stack_launches": stack_launches[kname],
             "mesh_launches": mesh_launches[kname],
             "harness_launches": harness_launches[kname],
+            "lm_family_launches": family_launches.get(kname, 0),
             **{k: main_t[k] for k in GRAPH_KEYS if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by", "ms_cold")
@@ -2965,6 +3657,8 @@ def main() -> None:
         "stack_launches": stack_launches["flash_attention"],
         "mesh_launches": mesh_launches["flash_attention"],
         "harness_launches": harness_launches["flash_attention"],
+        "lm_family_launches": family_launches["flash_attention"],
+        "lm_family_launches_by_model": family_by_model,
         "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

@@ -1,9 +1,7 @@
 """ArchConfig — one dataclass drives every assigned architecture.
 
 The port's copy of the JAX package's ``configs/base.py``: the same
-fields, layer pattern and parameter count.  Its registry offers only the
-configs whose layers the port has (decoder-only, attention mixers,
-dense FFNs); the others arrive with their layers.
+fields, layer pattern, parameter count and registry.
 
 Layer pattern encoding (see ``layer_kinds``):
   mixer:       "attn" everywhere, "rwkv" (attn-free), or "hybrid"
@@ -177,21 +175,15 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-def _register_ported() -> None:
-    """Import the config modules whose layers the port has."""
-    from repro_torch.configs import (command_r_35b, gemma3_1b,  # noqa: F401
-                                     llama3_405b, starcoder2_3b)
-
-
 def get_config(name: str) -> ArchConfig:
-    _register_ported()
+    import repro_torch.configs  # noqa: F401  (ensures registration ran)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def list_configs() -> list[str]:
-    _register_ported()
+    import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
 
 

@@ -12,7 +12,7 @@ the JAX side is read with ``np.asarray``.
 The LM's params and decode caches cross too: the JAX package stacks
 each position of its repeating super-block over the repeats (and keeps
 the remainder layers apart); the port keeps one module, and one cache
-entry, per layer.
+dict, per layer, for the decoder and the encoder stacks alike.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import layer_kinds, scan_grouping
+from repro_torch.configs.base import scan_grouping
 from repro_torch.core.bitpack import as_words, words_to_numpy
 from repro_torch.core.rvsnn import SnnRegFile
 from repro_torch.core.trainer import SNNModel
@@ -90,11 +90,12 @@ def model_from_jax(model, cfg=None, device=None) -> SNNModel:
 
 # --- the LM ------------------------------------------------------------------
 
-def _layer_of_stack(stack: dict, cfg, i: int) -> dict:
-    """Layer ``i`` of a JAX stack ``{"scan": [...], "rem": [...]}``: layer
-    ``i < period * reps`` is ``scan[i % period]`` at repeat
-    ``i // period``, the rest ``rem[i - period * reps]``."""
-    period, reps, _ = scan_grouping(layer_kinds(cfg))
+def _layer_of_stack(stack: dict, kinds, i: int) -> dict:
+    """Layer ``i`` of a JAX stack ``{"scan": [...], "rem": [...]}`` of the
+    layer pattern ``kinds``: layer ``i < period * reps`` is
+    ``scan[i % period]`` at repeat ``i // period``, the rest
+    ``rem[i - period * reps]``."""
+    period, reps, _ = scan_grouping(kinds)
     if i < period * reps:
         return _index_tree(stack["scan"][i % period], i // period)
     return stack["rem"][i - period * reps]
@@ -116,43 +117,80 @@ def _put(param: torch.Tensor, leaf) -> None:
     param.copy_(torch.from_numpy(a))
 
 
-@torch.no_grad()
-def lm_params_from_jax(model, params) -> None:
-    """Load the JAX package's LM params (the pytree of
-    ``Model.init_params``, leaves numpy-convertible) into the port's
-    ``Model`` in place, each leaf cast to the parameter's dtype."""
-    _put(model.embed, params["embed"])
-    for k, leaf in params["final_norm"].items():
-        _put(model.final_norm[k], leaf)
-    if "lm_head" in params:
-        _put(model.lm_head, params["lm_head"])
-    for i, block in enumerate(model.layers):
-        layer = _layer_of_stack(params["decoder"], model.cfg, i)
-        for part in ("ln1", "mixer", "ln2", "ffn"):
+def _put_blocks(blocks, stack: dict, kinds, what: str) -> None:
+    for i, block in enumerate(blocks):
+        layer = _layer_of_stack(stack, kinds, i)
+        parts = [name for name, _ in block.named_children()]
+        if set(parts) != set(layer):
+            raise ValueError(f"{what} layer {i}: the JAX params hold "
+                             f"{sorted(layer)}, the port {sorted(parts)}")
+        for part in parts:
             mine = getattr(block, part)
             if set(mine) != set(layer[part]):
-                raise ValueError(f"layer {i} {part}: the JAX params hold "
-                                 f"{sorted(layer[part])}, the port "
+                raise ValueError(f"{what} layer {i} {part}: the JAX params "
+                                 f"hold {sorted(layer[part])}, the port "
                                  f"{sorted(mine)}")
             for k, leaf in layer[part].items():
                 _put(mine[k], leaf)
 
 
-def lm_cache_from_jax(model, cache, device=None) -> list[dict]:
-    """The JAX package's decode cache (``{"decoder": {"scan", "rem"}}``)
-    -> the port's list of per-layer ``{"k", "v"}`` in the model's dtype
-    on ``device``."""
-    out = []
+@torch.no_grad()
+def lm_params_from_jax(model, params) -> None:
+    """Load the JAX package's LM params (the pytree of
+    ``Model.init_params``, leaves numpy-convertible) into the port's
+    ``Model`` in place, each leaf cast to the parameter's dtype: the
+    embedding, head and norms, every layer's parts (stacked experts, the
+    float32 router and Mamba/RWKV leaves, cross-attention), learned
+    positions and the encoder stack."""
+    for name in ("embed", "lm_head", "pos_embed", "enc_pos"):
+        if (name in params) != hasattr(model, name):
+            raise ValueError(f"{name}: in the JAX params {name in params}, "
+                             f"in the port {hasattr(model, name)}")
+        if name in params:
+            _put(getattr(model, name), params[name])
+    for name in ("final_norm", "enc_final_norm"):
+        for k, leaf in params.get(name, {}).items():
+            _put(getattr(model, name)[k], leaf)
+    _put_blocks(model.layers, params["decoder"], model.kinds, "decoder")
+    if model.cfg.is_enc_dec:
+        _put_blocks(model.encoder, params["encoder"], model.enc_kinds,
+                    "encoder")
+
+
+def _tensor(leaf, model, device) -> torch.Tensor:
+    """A JAX cache leaf on ``device``: float32 stays float32 (the SSM and
+    RWKV states), the rest takes the model's dtype."""
+    a = np.asarray(leaf)
+    dtype = torch.float32 if a.dtype == np.float32 else model.dtype
+    return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+
+
+def lm_cache_from_jax(model, cache, device=None) -> dict:
+    """The JAX package's decode cache (``{"decoder": {"scan", "rem"},
+    "enc_out"?}``) -> the port's ``{"decoder": [per-layer dicts],
+    "enc_out"?}`` on ``device``: every kind ("kv", "mamba", "rwkv",
+    "cross") with its tensors."""
+    layers = []
     for i in range(len(model.layers)):
-        kv = _layer_of_stack(cache["decoder"], model.cfg, i)["kv"]
-        out.append({name: torch.from_numpy(
-            np.asarray(kv[name]).astype(np.float32)).to(device, model.dtype)
-            for name in ("k", "v")})
+        layer = _layer_of_stack(cache["decoder"], model.kinds, i)
+        layers.append({kind: {name: _tensor(leaf, model, device)
+                              for name, leaf in tensors.items()}
+                       for kind, tensors in layer.items()})
+    out = {"decoder": layers}
+    if "enc_out" in cache:
+        out["enc_out"] = _tensor(cache["enc_out"], model, device)
     return out
 
 
-def lm_cache_to_numpy(cache: list[dict]) -> list[dict]:
-    """The port's decode cache -> per-layer ``{"k", "v"}`` float32 numpy
-    arrays [B, Hkv, S, D]."""
-    return [{name: layer[name].detach().float().cpu().numpy()
-             for name in ("k", "v")} for layer in cache]
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's decode cache -> the same tree of float32 numpy
+    arrays."""
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {"decoder": [{kind: {name: leaf(t) for name, t in tensors.items()}
+                        for kind, tensors in layer.items()}
+                       for layer in cache["decoder"]]}
+    if "enc_out" in cache:
+        out["enc_out"] = leaf(cache["enc_out"])
+    return out

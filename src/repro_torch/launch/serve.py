@@ -8,6 +8,7 @@
     python -m repro_torch.launch.serve --arch wenquxing-snn --overload-storm
     python -m repro_torch.launch.serve --arch gemma3-1b [--device cpu]
     python -m repro_torch.launch.serve --arch gemma3-1b --no-reduced
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
 
 wenquxing-snn: intensity-resident digit requests with ragged window
 lengths go through the dynamic-window-batching :class:`SNNServingEngine`;
@@ -21,8 +22,11 @@ train-while-serving (with ``--state-dir``, checkpointed versions),
 request did not terminate, a count diverged, or a harness found a
 violation.
 
-An LM config: a few short prompts through the continuous-batching
-:class:`ServingEngine`, greedy, with random weights from a seed.
+An LM config (any of ``list_configs()``): a few short prompts through
+the continuous-batching :class:`ServingEngine`, greedy, with random
+weights from a seed; whisper's encoder-decoder and internvl2's vision
+prefix go through ``Model.prefill``/``decode_step``, one prompt at a
+time, with stub frames or patches drawn from a seed.
 ``--reduced`` (the default) serves the config's reduced form in float32
 (``attn_chunk=16``, ``max_len=128``), as the JAX launcher does;
 ``--no-reduced`` serves the full width in bfloat16.  Exits nonzero if a
@@ -412,6 +416,33 @@ def _overload_storm_snn(args) -> int:
     return 0
 
 
+def _serve_with_frontend(model: Model, prompts: list[list[int]],
+                         max_new: int, max_len: int) -> tuple[int, int]:
+    """Greedy decoding of each prompt through ``Model.prefill`` and
+    ``decode_step`` (the engine serves decoder-only archs), with stub
+    front-end embeddings drawn from a seed: whisper's frames, internvl2's
+    patches.  Returns (requests done, tokens made)."""
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    key = "frames" if cfg.is_enc_dec else "patches"
+    done = tokens = 0
+    with torch.inference_mode():
+        for prompt in prompts:
+            front = torch.randn((1, cfg.frontend_len, cfg.d_model),
+                                generator=gen, device=model.device)
+            logits, cache, clen = model.prefill(
+                torch.tensor([prompt]), max_len, **{key: front})
+            out = [int(logits.argmax())]
+            while len(out) < max_new:
+                logits, cache = model.decode_step(
+                    torch.tensor([[out[-1]]]), cache, clen)
+                clen += 1
+                out.append(int(logits.argmax()))
+            done += len(out) == max_new
+            tokens += len(out)
+    return done, tokens
+
+
 def _serve_lm(args) -> int:
     """Serve ``--requests`` short prompts; returns the exit code."""
     cfg = get_config(args.arch)
@@ -421,16 +452,21 @@ def _serve_lm(args) -> int:
     else:
         model = Model(cfg, device=args.device)
     ops.reset_launch_counts()
-    eng = ServingEngine(model, n_slots=args.slots, max_len=128)
-    reqs = [Request(rid=i, prompt=[1 + i, 2, 3],
-                    max_new_tokens=args.max_new)
-            for i in range(args.requests)]
-    eng.run(reqs, max_steps=2000)
-    done = sum(r.done for r in reqs)
-    print(f"{cfg.name}: {done}/{len(reqs)} done, {eng.tokens_out} tokens "
-          f"(device={eng.device}, dtype={model.dtype}, flash_attention "
+    prompts = [[1 + i, 2, 3] for i in range(args.requests)]
+    if cfg.frontend is None:
+        eng = ServingEngine(model, n_slots=args.slots, max_len=128)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=args.max_new)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs, max_steps=2000)
+        done, tokens = sum(r.done for r in reqs), eng.tokens_out
+    else:
+        prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
+        done, tokens = _serve_with_frontend(model, prompts, args.max_new,
+                                            128 + prefix)
+    print(f"{cfg.name}: {done}/{len(prompts)} done, {tokens} tokens "
+          f"(device={model.device}, dtype={model.dtype}, flash_attention "
           f"launches {ops.launch_counts()['flash_attention']})")
-    return int(done != len(reqs))
+    return int(done != len(prompts))
 
 
 def main(argv=None) -> None:

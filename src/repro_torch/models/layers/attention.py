@@ -11,6 +11,9 @@ Three execution paths, all matching ``repro_torch.kernels.ref.attention_ref``:
   [B, Hkv, S, D], plain PyTorch on every device (the JAX package too
   computes it outside any kernel of its own).
 
+Cross-attention (whisper's decoder) takes q from the decoder stream and
+k, v from the encoder's output: the same three paths, not causal.
+
 Weights layout: fused qkv projection [d, (Hq + 2*Hkv) * Dh] so one matmul
 produces q/k/v.  ``decode_step`` writes the new token's k and v into the
 cache in place (no copy of the cache per step) and returns it.
@@ -157,31 +160,34 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
 
 def forward(params, x, cfg: AttnConfig, *, positions=None, kv_x=None,
             return_kv: bool = False, backend: str = "kernel"):
-    """Training / prefill self-attention.
+    """Prefill self- (or cross-) attention.
 
-    x: [B, T, d].  Returns [B, T, d], or (y, (k, v)) when ``return_kv``
-    (k/v post-rope, [B, Hkv, T, D] — prefill cache fill).  On a CUDA
-    tensor the attention is the flash kernel; on the CPU, or with
+    x: [B, T, d].  kv_x: the encoder's output for cross-attention (q
+    from x, k and v from kv_x; no rope, no causal mask).  Returns
+    [B, T, d], or (y, (k, v)) when ``return_kv`` (k/v post-rope,
+    [B, Hkv, Tk, D] — prefill cache fill).  On a CUDA tensor the
+    attention is the flash kernel; on the CPU, or with
     ``backend="ref"``, it is :func:`chunked_attention`.
     """
     ops._check_backend(backend)
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention waits for the encoder-decoder port "
-            "(ROADMAP.md §1, item 6)")
     b, t, _ = x.shape
-    q, k, v = _split_qkv(params, x, cfg)
-    if positions is None:
-        positions = torch.arange(t, device=x.device)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    if backend == "kernel" and x.device.type == "cuda":
-        out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+    causal, window = cfg.causal, cfg.window
+    if kv_x is None:
+        q, k, v = _split_qkv(params, x, cfg)
+        if positions is None:
+            positions = torch.arange(t, device=x.device)
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     else:
-        out = chunked_attention(q, k, v, causal=cfg.causal,
-                                window=cfg.window, chunk_k=cfg.chunk_k,
-                                q_offset=0)
+        q, _, _ = _split_qkv(params, x, cfg)
+        _, k, v = _split_qkv(params, kv_x, cfg)
+        causal, window = False, None
+    if backend == "kernel" and x.device.type == "cuda":
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                chunk_k=cfg.chunk_k, q_offset=0)
     y = out.transpose(1, 2).reshape(b, t, -1) @ params["wo"]
     if cfg.use_bias:
         y = y + params["bo"]

@@ -1,0 +1,109 @@
+"""Mixture-of-Experts (top-k routing, capacity-bounded scatter dispatch).
+
+The port of the JAX package's ``models/layers/moe.py``: tokens are
+scatter-packed into an [E, C, d] buffer (C = capacity per expert, over
+the tokens of this call), the experts run as one batched SwiGLU over E
+(``torch.bmm``: the JAX package leaves these products to XLA, outside
+any kernel of its own), and the outputs are gathered back and combined
+with the gates.  The router is softmax-then-top-k with renormalised
+gates, as in Mixtral; ties go to the lower expert index, as
+``jax.lax.top_k`` breaks them.  Each (token, slot) takes its place in
+its expert's buffer from a cumsum in token-major, slot-minor order;
+past the capacity it is dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.init import normal
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+
+
+def init(gen: torch.Generator | None, cfg: MoEConfig, dtype=torch.bfloat16,
+         device=None) -> dict:
+    """The layer's weights (the router in float32), drawn from ``gen``
+    (None: uninitialized, to be loaded)."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": normal(gen, (d, e), d ** -0.5, torch.float32, device),
+            "wi": normal(gen, (e, d, ff), d ** -0.5, dtype, device),
+            "wg": normal(gen, (e, d, ff), d ** -0.5, dtype, device),
+            "wo": normal(gen, (e, ff, d), ff ** -0.5, dtype, device)}
+
+
+def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def route(params, xf: torch.Tensor, cfg: MoEConfig):
+    """xf: [N, d] -> (probs f32[N, E], gates f32[N, k] renormalised,
+    experts int64[N, k]): the k largest probabilities of each token, in
+    descending order, ties to the lower expert index (a stable sort)."""
+    probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :cfg.top_k], idx[:, :cfg.top_k]
+    return probs, gate / gate.sum(dim=-1, keepdim=True), idx
+
+
+def slots(idx: torch.Tensor, n_experts: int):
+    """experts int[N, k] -> (one-hot int[N, k, E], each (token, slot)'s
+    place in its expert's buffer int[N, k]: a cumsum over the flattened
+    [N * k], token-major)."""
+    n, k = idx.shape
+    onehot = F.one_hot(idx, n_experts)
+    pos_flat = torch.cumsum(onehot.reshape(n * k, n_experts), dim=0) - 1
+    return onehot, (pos_flat.reshape(n, k, n_experts) * onehot).sum(dim=-1)
+
+
+def experts(params, buf: torch.Tensor) -> torch.Tensor:
+    """The batched expert FFN (SwiGLU), E leading: [E, C, d] -> [E, C, d]."""
+    h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wi"])
+    return torch.bmm(h, params["wo"])
+
+
+def forward(params, x: torch.Tensor, cfg: MoEConfig):
+    """x: [B, T, d] -> (y [B, T, d], aux_loss f32 scalar).
+
+    aux_loss is the standard load-balancing loss (mean_prob * mean_assign
+    * E), which the JAX package's training step adds.
+    """
+    b, t, d = x.shape
+    n = b * t
+    e = cfg.n_experts
+    cap = capacity(n, cfg)
+    xf = x.reshape(n, d)
+    probs, gate, idx = route(params, xf, cfg)
+    onehot, pos = slots(idx, e)
+    keep = pos < cap
+
+    # scatter tokens into [E, C, d]; the dropped ones all land in the
+    # extra row (E, C), which is cut off
+    e_idx = torch.where(keep, idx, e)
+    c_idx = torch.where(keep, pos, cap)
+    buf = x.new_zeros((e + 1, cap + 1, d))
+    buf.index_put_((e_idx.reshape(-1), c_idx.reshape(-1)),
+                   xf.repeat_interleave(cfg.top_k, dim=0))
+
+    y_e = experts(params, buf[:e, :cap])                          # [E, C, d]
+
+    # gather back + weighted combine
+    y_tok = y_e[e_idx.clamp(max=e - 1), c_idx.clamp(max=cap - 1)]
+    y_tok = torch.where(keep[..., None], y_tok, 0.0)              # [N, k, d]
+    y = (y_tok * gate[..., None].to(y_tok.dtype)).sum(dim=1)
+
+    me = probs.mean(dim=0)                                        # [E]
+    ce = onehot.sum(dim=1).float().mean(dim=0)
+    aux = (me * ce).sum() * e
+    return y.reshape(b, t, d), aux

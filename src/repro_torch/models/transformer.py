@@ -1,19 +1,24 @@
-"""Config-driven decoder-only transformer (attention mixers, dense FFNs).
+"""Config-driven transformer covering every assigned LM architecture.
 
-The port of the JAX package's ``models/transformer.py`` for the configs
-whose layers the port has: dense / GQA / sliding-window attention with a
-SwiGLU or GELU FFN.  ``Model`` is an ``nn.Module``; where the JAX model
-stacks the params of each position of its repeating super-block and
-scans over the stack, this one keeps a ``ModuleList`` of layers
-(``repro_torch.convert.lm_params_from_jax`` unstacks).  Mamba, RWKV, MoE,
-encoder-decoder and vision-prefix configs raise ``NotImplementedError``.
+The port of the JAX package's ``models/transformer.py``: dense / GQA /
+sliding-window attention, MoE FFNs, Mamba-hybrid (jamba), RWKV6, the
+encoder-decoder (whisper: an encoder stack, cross-attention in every
+decoder layer, learned positions) and a vision prefix (internvl2: patch
+embeddings before the text), driven by :class:`ArchConfig`.  ``Model``
+is an ``nn.Module``; where the JAX model stacks the params of each
+position of its repeating super-block and scans over the stack, this
+one keeps a ``ModuleList`` of layers
+(``repro_torch.convert.lm_params_from_jax`` unstacks).
 
 The prefill runs attention through the flash kernel on a card
 (``attn_backend="ref"`` asks for the plain ``chunked_attention``
-instead); decode runs ``attention.decode_step`` over a cache that is a
-list of per-layer ``{"k", "v"}`` tensors [B, Hkv, S, D], written in
-place.  The weights are frozen (``requires_grad=False``): the port
-serves this model and does not train it.
+instead).  The decode cache is ``{"decoder": [one dict a layer],
+"enc_out": [B, F, d] (enc-dec only)}``, each layer's dict keyed as the
+JAX package keys it: ``"kv"`` ({"k", "v"} [B, Hkv, S, D]), ``"mamba"``
+({"conv", "ssm"}), ``"rwkv"`` ({"shift", "state"}) and ``"cross"``
+({"k", "v"} over the encoder's frames).  Decode writes it in place.  The
+weights are frozen (``requires_grad=False``): the port serves this model
+and does not train it.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, LayerKind, layer_kinds
 from repro_torch.engine.engine import resolve_device
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import mamba as mamba_l
 from repro_torch.models.layers import mlp as mlp_l
+from repro_torch.models.layers import moe as moe_l
 from repro_torch.models.layers import norm as norm_l
+from repro_torch.models.layers import rwkv6 as rwkv_l
 from repro_torch.models.layers.init import normal
-
-_NOT_PORTED = "not ported yet (ROADMAP.md §1, item 6)"
 
 
 def _frozen(tensors: dict) -> nn.ParameterDict:
@@ -36,25 +42,15 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
                              for k, v in tensors.items()})
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is "
-                                  f"{_NOT_PORTED}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} prefix "
-                                  f"is {_NOT_PORTED}")
-    for kind in layer_kinds(cfg):
-        if not kind.mixer.startswith("attn"):
-            raise NotImplementedError(f"{cfg.name}: the {kind.mixer} mixer "
-                                      f"is {_NOT_PORTED}")
-        if kind.ffn != "mlp":
-            raise NotImplementedError(f"{cfg.name}: the {kind.ffn} FFN is "
-                                      f"{_NOT_PORTED}")
+def _param(tensor: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(tensor, requires_grad=False)
 
 
 class Block(nn.Module):
-    """One pre-norm sub-layer: norm, attention, residual, norm, FFN,
-    residual."""
+    """One pre-norm sub-layer: norm, mixer, residual, [norm, cross-
+    attention, residual,] norm, FFN, residual.  Its parts (``ln1``,
+    ``mixer``, ``ln_cross``, ``cross``, ``ln2``, ``ffn``) are the JAX
+    layer's dicts."""
 
     def __init__(self, kind: LayerKind, params: dict):
         super().__init__()
@@ -70,19 +66,23 @@ class Model(nn.Module):
     ``device``: ``cuda`` unless the caller asks for another (``cuda``
     without a card raises).  ``seed``: the weights are drawn from a
     ``torch.Generator`` on ``device`` seeded with it (None: left
-    uninitialized, to be loaded).
+    uninitialized, to be loaded).  ``rwkv_chunk`` > 0: the blocked RWKV6
+    prefill where it divides T (and T is longer), as the JAX model
+    chooses.
     """
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, *,
                  attn_chunk: int = 1024, attn_backend: str = "kernel",
-                 device=None, seed: int | None = 0):
+                 rwkv_chunk: int = 0, device=None, seed: int | None = 0):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.attn_chunk = attn_chunk
         self.attn_backend = attn_backend
+        self.rwkv_chunk = rwkv_chunk
         self.kinds = layer_kinds(cfg)
+        self.enc_kinds = (layer_kinds(cfg, cfg.encoder_layers, decoder=False)
+                          if cfg.is_enc_dec else [])
         self.init_params(seed, resolve_device(device))
 
     @property
@@ -100,6 +100,29 @@ class Model(nn.Module):
             causal=causal, use_bias=c.use_bias, chunk_k=self.attn_chunk,
             use_rope=c.use_rope)
 
+    def mamba_cfg(self) -> mamba_l.MambaConfig:
+        c = self.cfg
+        return mamba_l.MambaConfig(d_model=c.d_model, d_inner=2 * c.d_model,
+                                   d_state=c.d_state)
+
+    def rwkv_cfg(self) -> rwkv_l.RWKV6Config:
+        c = self.cfg
+        return rwkv_l.RWKV6Config(d_model=c.d_model,
+                                  head_size=c.rwkv_head_size)
+
+    def moe_cfg(self) -> moe_l.MoEConfig:
+        c = self.cfg
+        return moe_l.MoEConfig(d_model=c.d_model, d_ff=c.d_ff,
+                               n_experts=c.n_experts, top_k=c.top_k,
+                               capacity_factor=c.capacity_factor)
+
+    @property
+    def pos_emb(self) -> str:
+        c = self.cfg
+        if c.use_rope:
+            return "rope"
+        return "learned" if c.is_enc_dec else "none"
+
     # --- init ----------------------------------------------------------------
 
     def _norm_init(self, device) -> dict:
@@ -111,6 +134,28 @@ class Model(nn.Module):
         return (norm_l.layernorm(p, x) if self.cfg.norm == "ln"
                 else norm_l.rmsnorm(p, x))
 
+    def _init_block(self, gen, kind: LayerKind, dev, causal=True) -> Block:
+        c, dt = self.cfg, self.dtype
+        p = {"ln1": self._norm_init(dev)}
+        if kind.mixer.startswith("attn"):
+            p["mixer"] = attn.init(gen, self.attn_cfg(kind, causal), dt, dev)
+        elif kind.mixer == "mamba":
+            p["mixer"] = mamba_l.init(gen, self.mamba_cfg(), dt, dev)
+        elif kind.mixer == "rwkv":
+            p["mixer"] = rwkv_l.init(gen, self.rwkv_cfg(), dt, dev)
+        if kind.cross_attn:
+            p["ln_cross"] = self._norm_init(dev)
+            p["cross"] = attn.init(gen, self.attn_cfg(kind, causal=False),
+                                   dt, dev)
+        p["ln2"] = self._norm_init(dev)
+        if kind.ffn == "moe":
+            p["ffn"] = moe_l.init(gen, self.moe_cfg(), dt, dev)
+        elif c.act == "gelu":
+            p["ffn"] = mlp_l.gelu_mlp_init(gen, c.d_model, c.d_ff, dt, dev)
+        else:
+            p["ffn"] = mlp_l.swiglu_init(gen, c.d_model, c.d_ff, dt, dev)
+        return Block(kind, p)
+
     def init_params(self, seed: int | None, dev: torch.device) -> None:
         """(Re)create every parameter on ``dev``: the JAX package's
         shapes and scales, drawn in layer order from one generator seeded
@@ -119,33 +164,32 @@ class Model(nn.Module):
         gen = None
         if seed is not None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-        vp = c.vocab_padded
-        self.embed = nn.Parameter(
-            normal(gen, (vp, c.d_model), c.d_model ** -0.5, self.dtype, dev),
-            requires_grad=False)
+        vp, d = c.vocab_padded, c.d_model
+        self.embed = _param(normal(gen, (vp, d), d ** -0.5, self.dtype, dev))
         self.final_norm = _frozen(self._norm_init(dev))
-        blocks = []
-        for kind in self.kinds:
-            ffn_init = (mlp_l.gelu_mlp_init if c.act == "gelu"
-                        else mlp_l.swiglu_init)
-            blocks.append(Block(kind, {
-                "ln1": self._norm_init(dev),
-                "mixer": attn.init(gen, self.attn_cfg(kind), self.dtype,
-                                   dev),
-                "ln2": self._norm_init(dev),
-                "ffn": ffn_init(gen, c.d_model, c.d_ff, self.dtype, dev)}))
-        self.layers = nn.ModuleList(blocks)
+        self.layers = nn.ModuleList(self._init_block(gen, kind, dev)
+                                    for kind in self.kinds)
         if not c.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                normal(gen, (c.d_model, vp), c.d_model ** -0.5, self.dtype,
-                       dev),
-                requires_grad=False)
+            self.lm_head = _param(normal(gen, (d, vp), d ** -0.5, self.dtype,
+                                         dev))
+        if self.pos_emb == "learned":
+            self.pos_embed = _param(normal(gen, (c.max_seq_len, d), 0.02,
+                                           self.dtype, dev))
+        if c.is_enc_dec:
+            self.encoder = nn.ModuleList(
+                self._init_block(gen, kind, dev, causal=False)
+                for kind in self.enc_kinds)
+            self.enc_final_norm = _frozen(self._norm_init(dev))
+            self.enc_pos = _param(normal(gen, (c.frontend_len, d), 0.02,
+                                         self.dtype, dev))
 
     def cast(self, dtype) -> "Model":
         """A copy of this model with the same weight values in ``dtype``
-        (the norm scales stay float32)."""
+        (the norm scales and the float32 leaves of the MoE, Mamba and
+        RWKV layers stay float32)."""
         other = Model(self.cfg, dtype, attn_chunk=self.attn_chunk,
-                      attn_backend=self.attn_backend, device=self.device,
+                      attn_backend=self.attn_backend,
+                      rwkv_chunk=self.rwkv_chunk, device=self.device,
                       seed=None)
         other.load_state_dict(self.state_dict())
         return other
@@ -153,42 +197,97 @@ class Model(nn.Module):
     # --- forward sub-layer -----------------------------------------------------
 
     def _ffn(self, block: Block, h):
+        if block.kind.ffn == "moe":
+            return moe_l.forward(block.ffn, h, self.moe_cfg())[0]
         if self.cfg.act == "gelu":
             return mlp_l.gelu_mlp(block.ffn, h)
         return mlp_l.swiglu(block.ffn, h)
 
-    def _apply_sublayer(self, block: Block, x, *, positions,
-                        cache_max_len: int):
-        """One pre-norm sub-layer in prefill mode; returns (x, the layer's
-        decode cache)."""
-        acfg = self.attn_cfg(block.kind)
-        h = self._norm_apply(block.ln1, x)
-        h, (k, v) = attn.forward(block.mixer, h, acfg, positions=positions,
-                                 return_kv=True, backend=self.attn_backend)
-        alloc = (cache_max_len if acfg.window is None
-                 else min(cache_max_len, acfg.window))
+    @staticmethod
+    def _kv_cache(k, v, alloc: int) -> dict:
+        """The prefill's k, v [B, Hkv, T, D] as a cache of ``alloc``
+        slots: zero-padded, or a ring holding the last ``alloc`` tokens at
+        slot pos % alloc."""
         t = k.shape[2]
         if t <= alloc:
             pad = (0, 0, 0, alloc - t)
-            cache = {"k": nn.functional.pad(k, pad),
-                     "v": nn.functional.pad(v, pad)}
-        else:
-            # ring buffer: last `alloc` tokens at slot pos % alloc
-            dest = (torch.arange(alloc, device=k.device) + (t - alloc)) \
-                % alloc
-            cache = {}
-            for name, full in (("k", k), ("v", v)):
-                ring = torch.empty_like(full[:, :, :alloc])
-                ring[:, :, dest] = full[:, :, -alloc:]
-                cache[name] = ring
+            return {"k": nn.functional.pad(k, pad),
+                    "v": nn.functional.pad(v, pad)}
+        dest = (torch.arange(alloc, device=k.device) + (t - alloc)) % alloc
+        cache = {}
+        for name, full in (("k", k), ("v", v)):
+            ring = torch.empty_like(full[:, :, :alloc])
+            ring[:, :, dest] = full[:, :, -alloc:]
+            cache[name] = ring
+        return cache
+
+    def _apply_sublayer(self, block: Block, x, *, causal=True,
+                        positions=None, enc_out=None, cache_max_len=None):
+        """One pre-norm sub-layer.  ``cache_max_len`` not None: prefill
+        mode, the layer's decode cache filled.  Returns (x, cache)."""
+        kind = block.kind
+        collect = cache_max_len is not None
+        cache: dict = {}
+        h = self._norm_apply(block.ln1, x)
+        if kind.mixer.startswith("attn"):
+            acfg = self.attn_cfg(kind, causal)
+            out = attn.forward(block.mixer, h, acfg, positions=positions,
+                               return_kv=collect, backend=self.attn_backend)
+            if collect:
+                h, (k, v) = out
+                alloc = (cache_max_len if acfg.window is None
+                         else min(cache_max_len, acfg.window))
+                cache["kv"] = self._kv_cache(k, v, alloc)
+            else:
+                h = out
+        elif kind.mixer == "mamba":
+            out = mamba_l.forward(block.mixer, h, self.mamba_cfg(),
+                                  return_state=collect)
+            if collect:
+                h, cache["mamba"] = out
+            else:
+                h = out
+        elif kind.mixer == "rwkv":
+            ck, t = self.rwkv_chunk, h.shape[1]
+            if ck and t % ck == 0 and t > ck:
+                out = rwkv_l.forward_chunked(block.mixer, h, self.rwkv_cfg(),
+                                             chunk=ck, return_state=collect)
+            else:
+                out = rwkv_l.forward(block.mixer, h, self.rwkv_cfg(),
+                                     return_state=collect)
+            if collect:
+                h, cache["rwkv"] = out
+            else:
+                h = out
         x = x + h
+        if kind.cross_attn and enc_out is not None:
+            h = self._norm_apply(block.ln_cross, x)
+            out = attn.forward(block.cross, h, self.attn_cfg(kind, False),
+                               kv_x=enc_out, return_kv=collect,
+                               backend=self.attn_backend)
+            if collect:
+                h, (k, v) = out
+                cache["cross"] = {"k": k.contiguous(), "v": v.contiguous()}
+            else:
+                h = out
+            x = x + h
         x = x + self._ffn(block, self._norm_apply(block.ln2, x))
         return x, cache
 
     # --- embedding / heads -----------------------------------------------------
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.to(self.device, torch.int64)].to(self.dtype)
+        x = self.embed[tokens.to(self.device, torch.int64)].to(self.dtype)
+        if self.pos_emb == "learned":
+            x = x + self.pos_embed[:x.shape[1]]
+        return x
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over stub front-end embeddings [B, F, d]."""
+        x = frames.to(self.device, self.dtype) + self.enc_pos[None]
+        for block in self.encoder:
+            x, _ = self._apply_sublayer(block, x, causal=False)
+        return self._norm_apply(self.enc_final_norm, x)
 
     def _head_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -203,44 +302,111 @@ class Model(nn.Module):
 
     # --- decode ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> list[dict]:
-        return [attn.init_cache(batch, self.attn_cfg(kind), max_len,
-                                self.dtype, self.device)
-                for kind in self.kinds]
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        c, dt, dev = self.cfg, self.dtype, self.device
+        layers = []
+        for kind in self.kinds:
+            cache: dict = {}
+            if kind.mixer.startswith("attn"):
+                cache["kv"] = attn.init_cache(batch, self.attn_cfg(kind),
+                                              max_len, dt, dev)
+            elif kind.mixer == "mamba":
+                cache["mamba"] = mamba_l.init_cache(batch, self.mamba_cfg(),
+                                                    dt, dev)
+            elif kind.mixer == "rwkv":
+                cache["rwkv"] = rwkv_l.init_cache(batch, self.rwkv_cfg(), dt,
+                                                  dev)
+            if kind.cross_attn:
+                cache["cross"] = attn.init_cache(batch, self.attn_cfg(kind),
+                                                 c.frontend_len, dt, dev)
+            layers.append(cache)
+        out = {"decoder": layers}
+        if c.is_enc_dec:
+            out["enc_out"] = torch.zeros((batch, c.frontend_len, c.d_model),
+                                         dtype=dt, device=dev)
+        return out
 
-    def decode_step(self, tokens, cache: list[dict], cache_len):
+    def _decode_sublayer(self, block: Block, x, cache: dict, cache_len):
+        kind = block.kind
+        h = self._norm_apply(block.ln1, x)
+        if kind.mixer.startswith("attn"):
+            h, _ = attn.decode_step(block.mixer, h, cache["kv"], cache_len,
+                                    self.attn_cfg(kind))
+        elif kind.mixer == "mamba":
+            h, _ = mamba_l.decode_step(block.mixer, h, cache["mamba"],
+                                       self.mamba_cfg())
+        elif kind.mixer == "rwkv":
+            h, _ = rwkv_l.decode_step(block.mixer, h, cache["rwkv"],
+                                      self.rwkv_cfg())
+        x = x + h
+        if kind.cross_attn:
+            h = self._norm_apply(block.ln_cross, x)
+            acfg = self.attn_cfg(kind, causal=False)
+            q, _, _ = attn._split_qkv(block.cross, h, acfg)
+            out = attn.decode_attention(q, cache["cross"]["k"],
+                                        cache["cross"]["v"],
+                                        self.cfg.frontend_len)
+            h = out.transpose(1, 2).reshape(x.shape[0], 1, -1) \
+                @ block.cross["wo"]
+            if acfg.use_bias:
+                h = h + block.cross["bo"]
+            x = x + h
+        return x + self._ffn(block, self._norm_apply(block.ln2, x))
+
+    def decode_step(self, tokens, cache: dict, cache_len):
         """One serving step.  tokens: int[B, 1]; cache_len: int or int[B]
         (per-sequence lengths).  Returns (logits f32[B, Vp], cache), the
         cache written in place."""
-        x = self._embed(tokens)
-        for block, layer_cache in zip(self.layers, cache):
-            h = self._norm_apply(block.ln1, x)
-            h, _ = attn.decode_step(block.mixer, h, layer_cache, cache_len,
-                                    self.attn_cfg(block.kind))
-            x = x + h
-            x = x + self._ffn(block, self._norm_apply(block.ln2, x))
+        x = self.embed[tokens.to(self.device, torch.int64)].to(self.dtype)
+        if self.pos_emb == "learned":
+            cl = torch.as_tensor(cache_len, device=self.device)
+            cl = cl.to(torch.int64).clamp(0, self.cfg.max_seq_len - 1)
+            pos = self.pos_embed[cl]
+            x = x + (pos[:, None, :] if cl.ndim == 1 else pos)
+        for block, layer_cache in zip(self.layers, cache["decoder"]):
+            x = self._decode_sublayer(block, x, layer_cache, cache_len)
         x = self._norm_apply(self.final_norm, x)
         return self._logits(x)[:, 0], cache
 
-    def prefill(self, tokens, max_len: int, lengths=None):
+    def prefill(self, tokens, max_len: int, lengths=None, *, frames=None,
+                patches=None):
         """Process a prompt, build the decode cache.
 
-        tokens: int[B, T].  ``lengths`` (int[B], optional) = true prompt
-        lengths when T is a padded bucket; last-token logits are gathered
-        per sequence.  Returns (logits f32[B, Vp] for the last valid
-        position, cache, cache_len).
+        tokens: int[B, T]; ``frames`` [B, F, d] (enc-dec: the audio
+        front end's stub embeddings) and ``patches`` [B, P, d] (vision:
+        put before the text, counted in the cache length).  ``lengths``
+        (int[B], optional) = true lengths, the prefix included, when T is
+        a padded bucket; last-token logits are gathered per sequence.
+        Returns (logits f32[B, Vp] for the last valid position, cache,
+        cache_len).
         """
+        c = self.cfg
+        enc_out = None
+        if c.is_enc_dec:
+            if frames is None:
+                raise ValueError(f"{c.name} is an encoder-decoder: prefill "
+                                 f"needs frames=")
+            enc_out = self._encode(frames)
         x = self._embed(tokens)
+        if c.frontend == "vision":
+            if patches is None:
+                raise ValueError(f"{c.name} takes a vision prefix: prefill "
+                                 f"needs patches=")
+            x = torch.cat([patches.to(self.device, self.dtype), x], dim=1)
         t_total = x.shape[1]
         if t_total > max_len:
             raise ValueError(f"a prompt of {t_total} tokens does not fit a "
                              f"cache of max_len {max_len}")
         positions = torch.arange(t_total, device=x.device)
-        cache = []
+        layers = []
         for block in self.layers:
             x, layer_cache = self._apply_sublayer(
-                block, x, positions=positions, cache_max_len=max_len)
-            cache.append(layer_cache)
+                block, x, positions=positions, enc_out=enc_out,
+                cache_max_len=max_len)
+            layers.append(layer_cache)
+        cache = {"decoder": layers}
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
         x = self._norm_apply(self.final_norm, x)
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=x.device)

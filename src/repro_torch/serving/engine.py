@@ -6,12 +6,16 @@ over one batched KV cache:
 * fixed ``n_slots`` decode batch; every engine step decodes ONE token
   for every slot, empty ones too (per-slot cache lengths — new requests
   join mid-flight without stalling running ones);
-* prompt admission runs a B=1 prefill of the exact prompt length and
-  splices the resulting cache into the slot (batch is axis 0 of every
-  per-layer ``{"k", "v"}`` tensor);
+* prompt admission runs a B=1 prefill of the exact prompt length
+  (recurrent archs' states must not see pad tokens) and splices the
+  resulting cache into the slot (batch is axis 0 of every tensor of
+  every layer's cache: KV, Mamba, RWKV);
 * slots free on EOS / max_tokens and are immediately reusable.
 
-The engine works under ``torch.inference_mode()`` on the model's device.
+Decoder-only archs (dense / MoE / SSM / hybrid); whisper's
+encoder-decoder and internvl2's vision prefix are driven through
+``Model.prefill`` / ``decode_step`` instead.  The engine works under
+``torch.inference_mode()`` on the model's device.
 """
 
 from __future__ import annotations
@@ -73,11 +77,13 @@ class ServingEngine:
                              f"{self.max_len}")
         self.queue.append(req)
 
-    def _splice(self, slot: int, one_cache: list[dict]) -> None:
-        """Write a B=1 cache into batch position ``slot``."""
-        for big, small in zip(self.cache, one_cache):
-            for name in ("k", "v"):
-                big[name][slot] = small[name][0]
+    def _splice(self, slot: int, one_cache: dict) -> None:
+        """Write a B=1 cache into batch position ``slot`` of every tensor
+        of every layer's cache (batch is axis 0 of each kind)."""
+        for big, small in zip(self.cache["decoder"], one_cache["decoder"]):
+            for kind, tensors in small.items():
+                for name, t in tensors.items():
+                    big[kind][name][slot] = t[0]
 
     def _admit(self) -> None:
         free = [i for i, r in enumerate(self.slot_req) if r is None]

@@ -893,6 +893,16 @@ FLASH_SHAPES = [
     (2, 12, 1, 32, 65, 65, True, 17),
     (1, 2, 1, 64, 1, 1, True, None),
     (1, 8, 8, 128, 64, 64, False, None),
+    # the LM families': mixtral's 4,096 window at 48/8 heads, grok-1's
+    # longest prompt, whisper's encoder, its cross-attention (Tq 64 of Tk
+    # 1,500) and its decoder, jamba's layer, internvl2's 256 patches + 64
+    (1, 48, 8, 128, 4608, 4608, True, 4096),
+    (1, 48, 8, 128, 1500, 1500, True, None),
+    (1, 12, 12, 64, 1500, 1500, False, None),
+    (1, 12, 12, 64, 64, 1500, False, None),
+    (1, 12, 12, 64, 64, 64, True, None),
+    (1, 64, 8, 128, 1024, 1024, True, None),
+    (1, 48, 8, 128, 320, 320, True, None),
 ]
 
 
@@ -1055,6 +1065,50 @@ def test_cuda_lm_serving_equals_the_cpu_run(cuda, arch):
         assert launches == (cfg.n_layers * len(reqs) if dev == cuda else 0)
         outs[dev.type] = [r.output for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b",
+                                  "jamba-1.5-large-398b", "rwkv6-7b",
+                                  "whisper-small", "internvl2-26b"])
+def test_cuda_lm_family_prefill_equals_the_cpu_run(cuda, arch):
+    """Each family's reduced model in float32 on the card (attention
+    through the flash kernel: one launch per attention layer, encoder
+    layer and cross-attention of a prefill) and on the CPU: prefill and
+    3 decode steps within 1e-3 of the logits' largest magnitude, the
+    same greedy tokens."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.transformer import Model
+    cfg = reduced(get_config(arch))
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 19)))
+    front = {}
+    if cfg.frontend:
+        front["frames" if cfg.is_enc_dec else "patches"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.frontend_len, cfg.d_model),
+                                dtype=np.float32))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = Model(cfg, torch.float32, attn_chunk=16, device="cpu",
+                      seed=4).to(dev)
+        ops.reset_launch_counts()
+        logits, cache, clen = model.prefill(
+            toks, 48, **{k: v.to(dev) for k, v in front.items()})
+        launches = ops.launch_counts()["flash_attention"]
+        out = [logits.cpu()]
+        for _ in range(3):
+            nxt = out[-1].argmax(dim=-1)[:, None]
+            logits, cache = model.decode_step(nxt, cache, clen)
+            clen += 1
+            out.append(logits.cpu())
+        runs[dev.type] = (launches, torch.stack(out))
+    kinds = model.kinds + model.enc_kinds
+    want = (sum(k.mixer.startswith("attn") for k in kinds)
+            + sum(k.cross_attn for k in kinds))
+    assert runs["cuda"][0] == want and runs["cpu"][0] == 0
+    got, ref = runs["cuda"][1], runs["cpu"][1]
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+    assert torch.equal(got.argmax(dim=-1), ref.argmax(dim=-1))
 
 
 # --- the serving stack on the card -------------------------------------------

@@ -50,7 +50,9 @@ def test_importing_the_serving_stack_loads_no_jax():
             " repro_torch.bench.table2_resources,"
             " repro_torch.bench.kernels_bench, repro_torch.bench.loadgen_bench,"
             " repro_torch.bench.plot_history, repro_torch.distributed,"
-            " repro_torch.distributed.snn_mesh; "
+            " repro_torch.distributed.snn_mesh, repro_torch.launch.serve_lm,"
+            " repro_torch.models.layers.moe, repro_torch.models.layers.mamba,"
+            " repro_torch.models.layers.rwkv6, repro_torch.configs.shapes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -60,11 +62,9 @@ def test_importing_the_serving_stack_loads_no_jax():
 
 
 # JAX package-level names whose modules the port does not have yet
-# (``configs/shapes.py``, ``data/loader.py``, ``data/synthetic.py``)
-UNPORTED = {"repro.configs": {"SHAPES", "ShapeSpec", "applicable_shapes"},
-            "repro.data": {"ShardedLoader", "SyntheticTokens"}}
-UNPORTED_MODULES = ("configs/shapes.py", "data/loader.py",
-                    "data/synthetic.py")
+# (``data/loader.py``, ``data/synthetic.py``)
+UNPORTED = {"repro.data": {"ShardedLoader", "SyntheticTokens"}}
+UNPORTED_MODULES = ("data/loader.py", "data/synthetic.py")
 
 
 @pytest.mark.parametrize("package", ["repro.core", "repro.configs",
@@ -104,11 +104,17 @@ def test_registered_configs_and_package_values_match_the_jax_package():
     from repro.configs import get_config as jget_config
     from repro_torch.configs import WENQUXING_22A, get_config, list_configs
 
-    assert list_configs() == ["command-r-35b", "gemma3-1b", "llama3-405b",
-                              "starcoder2-3b"]
+    assert list_configs() == ["command-r-35b", "gemma3-1b", "grok-1-314b",
+                              "internvl2-26b", "jamba-1.5-large-398b",
+                              "llama3-405b", "mixtral-8x22b", "rwkv6-7b",
+                              "starcoder2-3b", "whisper-small"]
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
+    from repro.configs import SHAPES as JSHAPES
+    from repro_torch.configs import SHAPES
+    assert ({k: dataclasses.asdict(v) for k, v in SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in JSHAPES.items()})
     # every field both packages have, but ``kernel_backend``: the port's
     # values are "kernel" and "ref", the JAX package's "ref", "interp"
     # and "tpu"

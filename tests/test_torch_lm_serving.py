@@ -1,8 +1,10 @@
 """The port's LM serving engine, after the JAX package's
-``tests/test_serving.py`` (its attention-only cases): a batch of
-requests, continuous batching equal to one-at-a-time greedy decoding,
-slot reuse, EOS, and greedy outputs equal to the JAX engine's on the
-same params (float32, reduced configs, on the CPU)."""
+``tests/test_serving.py``: a batch of requests, continuous batching
+equal to one-at-a-time greedy decoding, slot reuse, EOS, and greedy
+outputs equal to the JAX engine's on the same params (float32, reduced
+configs, on the CPU), for the attention-only archs and for the MoE,
+SSM and hybrid ones (mixtral, grok-1, rwkv6, jamba); the serving CLIs
+for every registered LM config."""
 
 import os
 import subprocess
@@ -141,6 +143,90 @@ def test_greedy_outputs_equal_the_jax_engines(arch, n_slots, max_len):
         reqs[-1:], max_steps=300)
     assert [r.output for r in reqs] == [r.output for r in jreqs + [jeos]]
     assert reqs[-1].output[-1] == eos and len(reqs[-1].output) <= 4
+
+
+@pytest.mark.parametrize("n_slots", [2, 4])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b",
+                                  "mixtral-8x22b", "grok-1-314b"])
+def test_families_greedy_outputs_equal_the_jax_engines(arch, n_slots):
+    """Ragged prompts, more requests than slots: every slot decodes every
+    step, empty ones too, so the MoE layers route (and take capacity
+    for) the empty slots' tokens as the JAX engine's do; the recurrent
+    states are spliced into their slots and run on."""
+    jcfg = jreduced(jget_config(arch))
+    jmodel = JModel(jcfg, dtype=jnp.float32, attn_chunk=16)
+    params = jmodel.init_params(jax.random.key(2))
+    model = Model(reduced(get_config(arch)), torch.float32, attn_chunk=16,
+                  device="cpu", seed=None)
+    convert.lm_params_from_jax(model, params)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, jcfg.vocab_size, n).tolist()
+               for n in (5, 19, 3, 11, 8)]
+    jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=6)
+             for i, p in enumerate(prompts)]
+    JServingEngine(jmodel, params, n_slots=n_slots,
+                   max_len=40).run(jreqs, max_steps=300)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    eng = ServingEngine(model, n_slots=n_slots, max_len=40)
+    eng.run(reqs, max_steps=300)
+    assert all(r.done for r in reqs)
+    assert [r.output for r in reqs] == [r.output for r in jreqs]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-1.5-large-398b",
+                                  "whisper-small", "internvl2-26b"])
+def test_serve_cli_serves_every_family_on_the_cpu(arch):
+    """``launch/serve.py --arch`` takes every registered LM config: the
+    decoder-only ones through the engine, whisper and internvl2 through
+    ``Model.prefill``/``decode_step`` with stub frames or patches."""
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--device", "cpu", "--requests", "3", "--slots", "2",
+         "--max-new", "4"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"{arch}-smoke: 3/3 done, 12 tokens" in proc.stdout
+
+
+def test_serve_lm_cli_mirrors_the_examples_flags():
+    """``launch/serve_lm.py``, the counterpart of
+    ``examples/serve_lm.py``: the same flags and defaults, a reduced
+    config in float32, every request done."""
+    import ast
+
+    root = Path(__file__).resolve().parents[1]
+
+    def flags(path):
+        tree = ast.parse(path.read_text())
+        return {node.args[0].value: next(
+            (ast.literal_eval(kw.value) for kw in node.keywords
+             if kw.arg == "default"), None)
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and str(node.args[0].value).startswith("--")}
+
+    mine = flags(root / "src" / "repro_torch" / "launch" / "serve_lm.py")
+    theirs = flags(root / "examples" / "serve_lm.py")
+    assert {k: mine[k] for k in theirs} == theirs
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+         "grok-1-314b", "--device", "cpu", "--requests", "5", "--slots",
+         "2", "--max-new", "3", "--temperature", "0.7"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "completed 5/5 requests" in proc.stdout
+    assert "(15 tokens," in proc.stdout
+    if not torch.cuda.is_available():       # no --device: the card or stop
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_lm",
+             "--requests", "1"],
+            capture_output=True, text=True, env=env, timeout=300)
+        assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 
 def test_serve_cli_serves_a_reduced_lm_on_the_cpu():

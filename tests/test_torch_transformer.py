@@ -5,8 +5,12 @@ GQA group 4; tied embeddings) and ``reduced(starcoder2-3b)`` (biases, an
 untied head), with the JAX params carried across by
 ``convert.lm_params_from_jax``: prefill logits and caches (prompts
 shorter and longer than the window, so the ring buffer is filled both
-ways), and decode steps that wrap the ring.  atol = rtol = 1e-4: the
-sums run in a different order over 6 layers and the head.
+ways), and decode steps that wrap the ring; gemma3-1b with each of the
+other families' layers swapped in (RWKV, Mamba hybrid, MoE, an encoder,
+a vision prefix); the unstacking of a hybrid stack's remainder layers.
+atol = rtol = 1e-4: the sums run in a different order over the layers
+and the head.  ``tests/test_torch_lm_families.py`` holds the families'
+own configs.
 """
 
 import dataclasses
@@ -27,11 +31,12 @@ from repro_torch.models.transformer import Model
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _pair(arch, n_layers=None):
+def _pair(arch, n_layers=None, **change):
     jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
     if n_layers:
-        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        change["n_layers"] = n_layers
+    jcfg = dataclasses.replace(jcfg, **change)
+    cfg = dataclasses.replace(cfg, **change)
     jmodel = JModel(jcfg, dtype=jnp.float32, attn_chunk=16)
     params = jmodel.init_params(jax.random.key(0))
     model = Model(cfg, torch.float32, attn_chunk=16, device="cpu",
@@ -49,16 +54,25 @@ def _caches_close(cache, jcache, model):
     mine = convert.lm_cache_to_numpy(cache)
     theirs = convert.lm_cache_to_numpy(
         convert.lm_cache_from_jax(model, jcache))
-    assert len(mine) == len(theirs) == model.cfg.n_layers
-    for a, b in zip(mine, theirs):
-        for name in ("k", "v"):
-            assert a[name].shape == b[name].shape
-            _close(a[name], b[name])
+    assert mine.keys() == theirs.keys()
+    assert len(mine["decoder"]) == len(theirs["decoder"]) \
+        == model.cfg.n_layers
+    for a, b in zip(mine["decoder"], theirs["decoder"]):
+        assert a.keys() == b.keys()
+        for kind in a:
+            assert a[kind].keys() == b[kind].keys()
+            for name in a[kind]:
+                assert a[kind][name].shape == b[kind][name].shape
+                _close(a[kind][name], b[kind][name])
+    if "enc_out" in mine:
+        _close(mine["enc_out"], theirs["enc_out"])
 
 
 def test_reduced_configs_are_the_jax_packages():
     for arch in ("gemma3-1b", "starcoder2-3b", "llama3-405b",
-                 "command-r-35b"):
+                 "command-r-35b", "mixtral-8x22b", "grok-1-314b",
+                 "jamba-1.5-large-398b", "rwkv6-7b", "whisper-small",
+                 "internvl2-26b"):
         assert (dataclasses.asdict(reduced(get_config(arch)))
                 == dataclasses.asdict(jreduced(jget_config(arch))))
         assert (get_config(arch).n_params()
@@ -148,12 +162,68 @@ def test_model_defaults_to_the_card(monkeypatch):
         Model(reduced(get_config("gemma3-1b")), torch.float32)
 
 
-@pytest.mark.parametrize("change", [dict(mixer="rwkv"),
+@pytest.mark.parametrize("change", [dict(mixer="rwkv", use_rope=False),
                                     dict(mixer="hybrid", attn_period=2),
                                     dict(moe_period=1, n_experts=4),
-                                    dict(encoder_layers=2),
-                                    dict(frontend="vision", frontend_len=8)])
-def test_layers_not_ported_raise(change):
-    cfg = dataclasses.replace(reduced(get_config("gemma3-1b")), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, torch.float32, device="cpu")
+                                    dict(encoder_layers=2, frontend="audio",
+                                         frontend_len=8, use_rope=False),
+                                    dict(frontend="vision", frontend_len=8)],
+                         ids=["rwkv", "hybrid", "moe", "enc-dec", "vision"])
+def test_other_families_layers_in_gemma3(change):
+    """gemma3-1b's reduced config (16-token windows, GQA 4:1, tied head)
+    with each other family's layers swapped in: an RWKV stack, Mamba at
+    every other layer, MoE FFNs, an encoder with cross-attention and
+    learned positions, a vision prefix.  Prefill of 13 tokens (21
+    positions with the vision prefix's 8), then 4 decode steps, against
+    the JAX package's."""
+    jmodel, params, model = _pair("gemma3-1b", **change)
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    front = {}
+    if cfg.frontend:
+        key = "frames" if cfg.is_enc_dec else "patches"
+        front[key] = rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    logits, cache, clen = model.prefill(
+        torch.from_numpy(toks), 32,
+        **{k: torch.from_numpy(v) for k, v in front.items()})
+    jlogits, jcache, jclen = jmodel.prefill(
+        params, {"tokens": jnp.asarray(toks),
+                 **{k: jnp.asarray(v) for k, v in front.items()}}, 32)
+    assert clen == int(jclen)
+    _close(logits, jlogits)
+    _caches_close(cache, jcache, model)
+    for step in range(4):
+        nxt = np.array(jnp.argmax(jlogits, axis=-1), np.int32)[:, None]
+        lens = np.full((2,), clen + step, np.int32)
+        logits, cache = model.decode_step(torch.from_numpy(nxt), cache,
+                                          torch.as_tensor(lens))
+        jlogits, jcache = jmodel.decode_step(params, jnp.asarray(nxt),
+                                             jcache, jnp.asarray(lens))
+        _close(logits, jlogits)
+        _caches_close(cache, jcache, model)
+
+
+def test_unstacking_reaches_a_hybrid_stacks_remainder_layers():
+    """11 layers of jamba's pattern (attention at 4 of every 8, MoE at
+    every odd layer): the JAX package scans the 8-layer super-block once
+    and keeps 3 remainder layers (Mamba, MoE; Mamba; Mamba, MoE), whose
+    params and Mamba caches the port's layers 8-10 take."""
+    jmodel, params, model = _pair("jamba-1.5-large-398b", n_layers=11)
+    dec = params["decoder"]
+    assert len(dec["scan"]) == 8 and len(dec["rem"]) == 3
+    for i, block in enumerate(model.layers):
+        layer = dec["scan"][i % 8] if i < 8 else dec["rem"][i - 8]
+        for part in ("mixer", "ffn"):
+            for name, got in getattr(block, part).items():
+                want = np.asarray(layer[part][name])
+                np.testing.assert_array_equal(got.numpy(),
+                                              want[0] if i < 8 else want)
+    toks = np.arange(1, 12, dtype=np.int32)[None]
+    logits, cache, _ = model.prefill(torch.from_numpy(toks), 16)
+    jlogits, jcache, _ = jmodel.prefill(params, {"tokens": jnp.asarray(toks)},
+                                        16)
+    _close(logits, jlogits)
+    _caches_close(cache, jcache, model)
+    assert [sorted(layer) for layer in cache["decoder"][8:]] == [["mamba"]] * 3

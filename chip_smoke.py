@@ -219,7 +219,27 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    64-token prompt, a prefill and 16 decode steps.  For (c)-(f) the
    prefill through the kernel and through the plain attention give the
    same greedy token.  Prints the phase's wall time.
-13. Prints the kernels' JSON line, then, last,
+13. LM training, with the launch counts set to 0 before and read after
+   each counted run (flash launches must be 0 in every training run):
+   (a) gemma3-1b at full width and depth (26 layers, d 1,152, vocab
+   262,144, the 512 window on five of every six layers), params in bf16
+   and AdamW states in float32, B 4, T 1,024, ``loss_chunk`` 256, remat
+   on, ``SyntheticTokens(seed=0)`` through ``ShardedLoader``, 8 steps
+   through ``TrainLoop`` with a checkpoint every 4 (under ``build/``,
+   removed after), under deterministic algorithms: ms per step, tokens/s,
+   model FLOP/s as 6 N tokens / step beside the dense bf16 peak, peak
+   memory allocated, one step's forward / backward / optimizer split and
+   the card's busy share of a traced step printed; the loss finite and
+   falling; (b) the same 8 steps from the same weights with a
+   ``SimulatedFailure`` at the start of step 6: one restart, final params
+   and AdamW state bit-equal to (a)'s; (c) the trained weights' 1,000-token
+   prefill through the flash kernel (26 launches) and through the plain
+   attention: the same greedy token; (d) each of the ten LM configs
+   ``reduced()`` in float32, TF32 off: three steps on the card and on the
+   CPU from the same weights, losses within 1e-4 relative; (e)
+   ``flash_attention`` with a grad-requiring q under grad mode raises,
+   launching nothing.  Prints the phase's wall time.
+14. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
@@ -245,7 +265,13 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# phase 13 holds a training run's recovery bit for bit under
+# deterministic algorithms, which need cuBLAS's workspace fixed before
+# its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/snn_infer.cu"
@@ -2384,8 +2410,11 @@ def busy_share(fn) -> tuple[float, float, str]:
         return 1e6 * (time.perf_counter() - t0)
 
     def read(prof, wall_us):
+        # a ``record_function`` range shows as device time spanning its
+        # kernels: left out, so nothing is counted twice
         devs = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         dev_us = sum(e.self_device_time_total for e in devs)
         if dev_us <= 0:
             return None
@@ -3492,6 +3521,334 @@ def phase_lm_families() -> tuple[dict, dict]:
     return dict(total), by_model
 
 
+# --- LM training: gemma3-1b at full width, recovery, every family reduced ---
+
+# (a): the batch, the loss's sequence chunk, the steps and the checkpoint
+# period; (b): the step whose start fails
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_CHUNK = 4, 1024, 256
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+# (c): the prompt served with the trained weights
+TRAIN_PROMPT = 1000
+# the card's dense bf16 peak (NVIDIA's data sheet, H100 SXM, 700 W)
+BF16_PEAK = 989e12
+# (d): the reduced families' steps, batch, sequence and loss tolerance
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 3, 4, 64
+FAMILY_TRAIN_RTOL = 1e-4
+
+
+def train_setup(cfg, model, lr: float):
+    """(AdamW, step function, batch function) of phase 13 (a): the
+    cosine schedule over the steps, ``SyntheticTokens(seed=0)`` through
+    ``ShardedLoader``, batches copied to the model's device."""
+    from repro_torch.data import ShardedLoader, SyntheticTokens
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+
+    opt = AdamW(AdamWConfig(lr=cosine_schedule(lr, 2, TRAIN_STEPS)))
+    src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          batch_size=TRAIN_BATCH, seed=0)
+    loader = ShardedLoader(src.batch, prefetch=2)
+    dev = model.device
+
+    def batch_fn(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in loader.get(step).items()}
+
+    return opt, make_train_step(model, opt), batch_fn
+
+
+def train_loop_run(step_fn, batch_fn, state, ckpt_dir: Path,
+                   failure_hook=None):
+    """``TrainLoop`` over phase 13's steps from ``state``, checkpoints
+    under ``ckpt_dir`` (emptied first), the launch counts set to 0 before
+    and read after.  Returns (loop, final state, launches, wall s)."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = TrainLoop(step_fn, TrainLoopConfig(
+        total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+        keep_checkpoints=2), str(ckpt_dir), batch_fn=batch_fn,
+        failure_hook=failure_hook)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = loop.run(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return loop, final, ops.launch_counts(), wall
+
+
+def train_step_split(model, opt, params, opt_state, batch) -> tuple:
+    """ms of one training step's forward (the loss), backward (the
+    gradients; the remat recomputes each layer here) and optimizer
+    (AdamW), each on the host's clock around work that ends in a
+    synchronize."""
+    from repro_torch.launch.train import bind_params
+
+    bound = bind_params(model, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(bound.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.apply(dict(zip(bound, grads)), opt_state, params)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)
+
+
+def nondeterministic_grads(model, batch) -> str:
+    """Which of the loss's gradients differ between two identical
+    backward passes without deterministic algorithms, and whether the
+    two scattering backwards on the path (the embedding lookup's
+    accumulate, the loss's gather) repeat alone at the loss's shapes."""
+    params = dict(model.named_parameters())
+
+    def grads():
+        return torch.autograd.grad(model.loss(batch), list(params.values()))
+
+    diff = [n for n, a, b in zip(params, grads(), grads())
+            if not torch.equal(a, b)]
+    tok = batch["tokens"].long()
+    w = model.embed.detach().clone().requires_grad_(True)
+    up = torch.randn(*tok.shape, w.shape[1], device=w.device, dtype=w.dtype)
+    lookup = [torch.autograd.grad((w[tok] * up).sum(), [w])[0]
+              for _ in range(2)]
+    logits = torch.randn(tok.shape[0], TRAIN_LOSS_CHUNK, w.shape[0],
+                         device=w.device, requires_grad=True)
+    y = batch["labels"][:, :TRAIN_LOSS_CHUNK, None].long()
+    gather = [torch.autograd.grad(logits.gather(-1, y).sum(), [logits])[0]
+              for _ in range(2)]
+    return (f"{len(diff)} of {len(params)} gradients differ between two "
+            f"backward passes ({diff[:6]}); the embedding lookup's "
+            f"backward repeats: {torch.equal(*lookup)}; the gather's: "
+            f"{torch.equal(*gather)}")
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else same_tree(a[k], b[k]) for k in a)
+
+
+def lm_train_full() -> tuple[int, dict]:
+    """Phase 13 (a)-(c): gemma3-1b at full width and depth in bf16 (AdamW
+    states in f32) trained through ``TrainLoop`` on the card, then the
+    same steps with a failure, then the trained weights served.  Returns
+    (flash launches while training, the model's trained params)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import bind_params
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import SimulatedFailure
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    ckpt = ROOT / "build" / "train_ckpt"
+    model = Model(cfg, torch.bfloat16, loss_chunk=TRAIN_LOSS_CHUNK,
+                  attn_chunk=512, device=dev, seed=0)
+    opt, step_fn, batch_fn = train_setup(cfg, model, 1e-3)
+    print(f"lm train: without deterministic algorithms, "
+          f"{nondeterministic_grads(model, batch_fn(0))}", flush=True)
+    torch.cuda.empty_cache()
+    # the recovery below is held bit for bit
+    torch.use_deterministic_algorithms(True)
+    try:
+        params0 = {k: v.detach().clone()
+                   for k, v in model.named_parameters()}
+        n_params = sum(v.numel() for v in params0.values())
+        state0 = (params0, opt.init(params0))
+        print(f"lm train: {cfg.name} at full width and depth ({cfg.n_layers}"
+              f" layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"window {cfg.window} on {cfg.swa_period - 1} of every "
+              f"{cfg.swa_period}), {n_params} parameters in bf16, AdamW "
+              f"states in float32; B {TRAIN_BATCH}, T {TRAIN_SEQ}, "
+              f"loss_chunk {TRAIN_LOSS_CHUNK}, remat on; {TRAIN_STEPS} steps,"
+              f" a checkpoint every {TRAIN_CKPT_EVERY}; deterministic "
+              f"algorithms on", flush=True)
+
+        # (a) the uninterrupted run
+        torch.cuda.reset_peak_memory_stats()
+        loop, final, launches, wall = train_loop_run(step_fn, batch_fn,
+                                                     state0, ckpt)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in loop.metrics_log]
+        dts = [1e3 * m["dt"] for m in loop.metrics_log]
+        step_ms = statistics.median(dts[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = 6 * n_params * tokens / (step_ms / 1e3)
+        print(f"lm train (a): loss by step {losses}; step ms {dts}; median "
+              f"after the first {step_ms} ms = {tokens / (step_ms / 1e3)} "
+              f"tokens/s, model FLOP/s (6 N tokens / step) {flops} = "
+              f"{flops / BF16_PEAK} of the dense bf16 peak; loop wall "
+              f"{wall} s (checkpoints included); peak memory allocated "
+              f"{peak} B; launches {launches}", flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"gemma3-1b training: the loss is not finite or did not "
+                 f"fall: {losses}")
+        if len(losses) != TRAIN_STEPS or launches["flash_attention"]:
+            fail(f"gemma3-1b training ran {len(losses)} steps with "
+                 f"{launches['flash_attention']} flash launches")
+        train_flash = launches["flash_attention"]
+
+        batch = batch_fn(0)
+        fwd, bwd, upd = train_step_split(model, opt, *final, batch)
+        print(f"lm train (a): one step split: forward {fwd} ms, backward "
+              f"(remat recompute included) {bwd} ms, optimizer {upd} ms",
+              flush=True)
+        wall_us, share, top = busy_share(
+            lambda: step_fn(*final, batch, None))
+        print(f"lm train trace: one step: wall {wall_us} us, card busy "
+              f"{share} of it; device work: {top}", flush=True)
+
+        # (b) the same steps, a failure at the start of one
+        failed = []
+
+        def failure_hook(step):
+            if step == TRAIN_FAIL_AT and not failed:
+                failed.append(step)
+                raise SimulatedFailure("node lost")
+
+        loop_b, final_b, launches_b, wall_b = train_loop_run(
+            step_fn, batch_fn, state0, ckpt, failure_hook)
+        equal = (same_tree(final_b[0], final[0])
+                 and same_tree(final_b[1], final[1]))
+        print(f"lm train (b): failure at step {TRAIN_FAIL_AT}: restarts "
+              f"{loop_b.restarts}, steps run "
+              f"{[m['step'] for m in loop_b.metrics_log]}, loop wall {wall_b}"
+              f" s; final params and AdamW state bit-equal to (a): {equal};"
+              f" launches {launches_b}", flush=True)
+        if loop_b.restarts != 1 or not equal or launches_b["flash_attention"]:
+            fail("gemma3-1b training did not recover bit-identically from "
+                 "the failure")
+        train_flash += launches_b["flash_attention"]
+        del loop_b, final_b, state0, params0
+    finally:
+        import shutil
+
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # (c) serve what was trained: one prefill through the kernel, one
+    # through the plain attention
+    bind_params(model, final[0])
+    del final, loop
+    torch.cuda.empty_cache()
+    prompt = torch.from_numpy(np.random.default_rng(35).integers(
+        0, cfg.vocab_size, (1, TRAIN_PROMPT))).to(dev)
+    ops.reset_launch_counts()
+    kern, _, _ = model.prefill(prompt, 1024)
+    torch.cuda.synchronize()
+    served = ops.launch_counts()["flash_attention"]
+    model.attn_backend = "ref"
+    plain, _, _ = model.prefill(prompt, 1024)
+    model.attn_backend = "kernel"
+    same = int(kern.argmax()) == int(plain.argmax())
+    print(f"lm train (c): the trained weights' {TRAIN_PROMPT}-token prefill: "
+          f"flash launches {served} ({cfg.n_layers} layers); greedy token "
+          f"through the kernel {int(kern.argmax())}, through the plain "
+          f"attention {int(plain.argmax())}; max |diff| / max |logit| "
+          f"{rel_err(kern, plain)}", flush=True)
+    if served != cfg.n_layers or not same:
+        fail("the trained gemma3-1b's prefill through the kernel differs "
+             "from the plain attention's (or launched the kernel "
+             f"{served} times)")
+    del model
+    torch.cuda.empty_cache()
+    return train_flash, served
+
+
+def lm_train_families() -> int:
+    """Phase 13 (d): each registered LM config ``reduced()`` in float32,
+    TF32 off: three AdamW steps on the card and on the CPU from the same
+    weights and batches, losses within ``FAMILY_TRAIN_RTOL``.  Returns
+    the flash launches of the card's steps (all must be 0)."""
+    from repro_torch.configs.base import get_config, list_configs, reduced
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import frontend_inputs, make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash, worst = 0, {}
+    for arch in list_configs():
+        cfg = reduced(get_config(arch))
+        src = SyntheticTokens(vocab_size=cfg.vocab_size,
+                              seq_len=FAMILY_TRAIN_SEQ,
+                              batch_size=FAMILY_TRAIN_BATCH, seed=0)
+        losses = {}
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            model = Model(cfg, torch.float32, loss_chunk=32, attn_chunk=32,
+                          device="cpu", seed=5).to(dev)
+            opt = AdamW(AdamWConfig(lr=cosine_schedule(1e-3, 1, 3)))
+            step = make_train_step(model, opt)
+            params = dict(model.named_parameters())
+            state = (params, opt.init(params))
+            ops.reset_launch_counts()
+            out = []
+            for i in range(FAMILY_TRAIN_STEPS):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in src.batch(i).items()}
+                batch.update(frontend_inputs(cfg, FAMILY_TRAIN_BATCH, dev))
+                p, s, m = step(*state, batch)
+                state = (p, s)
+                out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                flash += ops.launch_counts()["flash_attention"]
+            losses[dev.type] = out
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        worst[arch] = rel
+        print(f"lm train (d): {cfg.name}: loss by step on the card "
+              f"{losses['cuda']}, on the CPU {losses['cpu']}; max relative "
+              f"difference {rel}", flush=True)
+        if not rel <= FAMILY_TRAIN_RTOL:
+            fail(f"{cfg.name}: the card's training steps differ from the "
+                 f"CPU's by {rel} (limit {FAMILY_TRAIN_RTOL})")
+    if flash:
+        fail(f"training the reduced families launched flash {flash} times")
+    return flash
+
+
+def phase_lm_train() -> dict:
+    """Phase 13: LM training on the card.  Returns the flash launches of
+    its parts: training (must be 0) and the trained weights' prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_flash, served = lm_train_full()
+    train_flash += lm_train_families()
+
+    # (e) the guard: no output cut off from autograd
+    q, k, v = (torch.randn(1, 4, 64, 256, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    ops.reset_launch_counts()
+    try:
+        flash_attention(q, k, v)
+    except ValueError as e:
+        print(f"lm train (e): flash_attention with q.requires_grad under "
+              f"grad mode raises: {e}", flush=True)
+    else:
+        fail("flash_attention returned an output cut off from autograd")
+    if ops.launch_counts()["flash_attention"]:
+        fail("the refused flash_attention call launched the kernel")
+    print(f"lm train: flash launches while training {train_flash}, in the "
+          f"trained weights' prefill {served}; phase wall "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return {"lm_train_launches": train_flash,
+            "lm_trained_prefill_launches": served}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -3569,7 +3926,11 @@ def main() -> None:
     # vision prefix) at full width, depth cut
     family_launches, family_by_model = phase_lm_families()
 
-    # phase 13: the kernels' JSON line, then the last line
+    # phase 13: LM training (gemma3-1b at full width, the recovery, the
+    # trained weights served, every family reduced, the flash guard)
+    train_flash = phase_lm_train()
+
+    # phase 14: the kernels' JSON line, then the last line
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -3659,6 +4020,7 @@ def main() -> None:
         "harness_launches": harness_launches["flash_attention"],
         "lm_family_launches": family_launches["flash_attention"],
         "lm_family_launches_by_model": family_by_model,
+        **train_flash,
         "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

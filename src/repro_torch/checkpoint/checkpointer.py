@@ -22,9 +22,11 @@ tuples (in order), ``None`` (no leaves), and leaves: tensors, numpy
 arrays and scalars.  Packed u32 words, which the port holds as int32
 bit patterns, are written as ``uint32`` where the JAX package writes
 ``uint32``: the ``spike``, ``lfsr`` and ``weights`` fields of an
-:class:`~repro_torch.core.rvsnn.SnnRegFile`.  A restore returns each
-leaf whose ``like`` is a tensor as a tensor on the like's device (a
-``uint32`` file as int32 bit patterns); any other leaf comes back as a
+:class:`~repro_torch.core.rvsnn.SnnRegFile`.  A bfloat16 leaf is written
+as numpy writes the JAX package's (2-byte void, manifest dtype
+``bfloat16``).  A restore returns each leaf whose ``like`` is a tensor
+as a tensor on the like's device (a ``uint32`` file as int32 bit
+patterns, a bfloat16 one as bfloat16); any other leaf comes back as a
 numpy array.
 """
 
@@ -40,6 +42,11 @@ import torch
 
 from repro_torch.core.bitpack import as_words
 from repro_torch.core.rvsnn import SnnRegFile
+
+# a bfloat16 leaf's file: its 2-byte patterns as numpy void, the layout
+# numpy gives the JAX package's bfloat16 arrays (manifest dtype
+# "bfloat16")
+_BF16_FILE = np.dtype("V2")
 
 # the fields of a tree node type that hold packed u32 words
 _WORD_FIELDS = {SnnRegFile: frozenset({"spike", "lfsr", "weights"})}
@@ -109,10 +116,16 @@ def _unflatten(like, leaves: list):
 
 def _to_host(leaf, words: bool) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        arr = leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        host = t.cpu()
+        if host.dtype == torch.bfloat16:
+            arr = host.view(torch.int16).numpy().view(_BF16_FILE)
+        else:
+            arr = host.numpy()
         if words and arr.dtype == np.int32:
             arr = arr.view(np.uint32)
-        return np.array(arr)        # owned: the thread never sees a view
+        # owned: the thread never sees a view (a card's copy already is)
+        return arr if t.device.type != "cpu" else np.array(arr)
     return np.array(np.asarray(leaf))
 
 
@@ -122,6 +135,9 @@ def _place(arr: np.ndarray, like):
         return arr
     if arr.dtype == np.uint32:
         return as_words(arr, like.device)
+    if arr.dtype == _BF16_FILE:
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(like.device)
     return torch.from_numpy(arr).to(like.device)
 
 
@@ -155,7 +171,8 @@ class CheckpointManager:
                 np.save(tmp / fname, arr)
                 manifest["leaves"][key] = {
                     "file": fname, "shape": list(arr.shape),
-                    "dtype": str(arr.dtype)}
+                    "dtype": ("bfloat16" if arr.dtype == _BF16_FILE
+                              else str(arr.dtype))}
             manifest["treedef"] = treedef
             (tmp / "manifest.json").write_text(json.dumps(manifest))
             if final.exists():

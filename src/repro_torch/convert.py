@@ -9,7 +9,8 @@ trained models across without changing a bit, so both packages can
 serve, or go on training, the same state.  Nothing here imports JAX:
 the JAX side is read with ``np.asarray``.
 
-The LM's params and decode caches cross too: the JAX package stacks
+The LM's params (and any tree of their shape: grads, AdamW's m and v),
+its AdamW state and its decode caches cross too: the JAX package stacks
 each position of its repeating super-block over the repeats (and keeps
 the remainder layers apart); the port keeps one module, and one cache
 dict, per layer, for the decoder and the encoder stacks alike.
@@ -117,21 +118,51 @@ def _put(param: torch.Tensor, leaf) -> None:
     param.copy_(torch.from_numpy(a))
 
 
-def _put_blocks(blocks, stack: dict, kinds, what: str) -> None:
+def _blocks_tree(blocks, stack: dict, kinds, prefix: str, out: dict
+                 ) -> None:
     for i, block in enumerate(blocks):
         layer = _layer_of_stack(stack, kinds, i)
         parts = [name for name, _ in block.named_children()]
         if set(parts) != set(layer):
-            raise ValueError(f"{what} layer {i}: the JAX params hold "
+            raise ValueError(f"{prefix} layer {i}: the JAX params hold "
                              f"{sorted(layer)}, the port {sorted(parts)}")
         for part in parts:
             mine = getattr(block, part)
             if set(mine) != set(layer[part]):
-                raise ValueError(f"{what} layer {i} {part}: the JAX params "
+                raise ValueError(f"{prefix} layer {i} {part}: the JAX params "
                                  f"hold {sorted(layer[part])}, the port "
                                  f"{sorted(mine)}")
             for k, leaf in layer[part].items():
-                _put(mine[k], leaf)
+                out[f"{prefix}.{i}.{part}.{k}"] = leaf
+
+
+def lm_tree_from_jax(model, tree) -> dict:
+    """Any tree shaped as the JAX package's LM params (the params, their
+    grads, AdamW's m or v; leaves numpy-convertible) -> ``{name: numpy
+    array}`` keyed by the port's ``model.named_parameters()`` names: the
+    ``scan`` stacks unstacked one layer at a time, the ``rem`` layers
+    after them, the encoder's alike.  Every port parameter gets a leaf
+    (raises where the trees differ)."""
+    out = {}
+    for name in ("embed", "lm_head", "pos_embed", "enc_pos"):
+        if (name in tree) != hasattr(model, name):
+            raise ValueError(f"{name}: in the JAX params {name in tree}, "
+                             f"in the port {hasattr(model, name)}")
+        if name in tree:
+            out[name] = tree[name]
+    for name in ("final_norm", "enc_final_norm"):
+        for k, leaf in tree.get(name, {}).items():
+            out[f"{name}.{k}"] = leaf
+    _blocks_tree(model.layers, tree["decoder"], model.kinds, "layers", out)
+    if model.cfg.is_enc_dec:
+        _blocks_tree(model.encoder, tree["encoder"], model.enc_kinds,
+                     "encoder", out)
+    names = [n for n, _ in model.named_parameters()]
+    if sorted(names) != sorted(out):
+        raise ValueError(f"the JAX tree gives {sorted(set(out) - set(names))}"
+                         f" beyond the port's parameters and lacks "
+                         f"{sorted(set(names) - set(out))}")
+    return {n: np.asarray(out[n]) for n in names}
 
 
 @torch.no_grad()
@@ -142,19 +173,29 @@ def lm_params_from_jax(model, params) -> None:
     embedding, head and norms, every layer's parts (stacked experts, the
     float32 router and Mamba/RWKV leaves, cross-attention), learned
     positions and the encoder stack."""
-    for name in ("embed", "lm_head", "pos_embed", "enc_pos"):
-        if (name in params) != hasattr(model, name):
-            raise ValueError(f"{name}: in the JAX params {name in params}, "
-                             f"in the port {hasattr(model, name)}")
-        if name in params:
-            _put(getattr(model, name), params[name])
-    for name in ("final_norm", "enc_final_norm"):
-        for k, leaf in params.get(name, {}).items():
-            _put(getattr(model, name)[k], leaf)
-    _put_blocks(model.layers, params["decoder"], model.kinds, "decoder")
-    if model.cfg.is_enc_dec:
-        _put_blocks(model.encoder, params["encoder"], model.enc_kinds,
-                    "encoder")
+    leaves = lm_tree_from_jax(model, params)
+    for name, p in model.named_parameters():
+        _put(p, leaves[name])
+
+
+def adamw_state_from_jax(model, state, device=None) -> dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` for the LM's
+    params -> the port's (``repro_torch.optim.AdamW``): m and v keyed by
+    the port's parameter names, each leaf in its JAX dtype (bf16 or f32)
+    on ``device`` (default the model's), step an int32 0-d tensor."""
+    dev = model.device if device is None else device
+
+    def tensors(tree):
+        out = {}
+        for name, a in lm_tree_from_jax(model, tree).items():
+            dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
+                     else torch.float32)
+            out[name] = torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+        return out
+
+    return {"m": tensors(state["m"]), "v": tensors(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def _tensor(leaf, model, device) -> torch.Tensor:

@@ -20,8 +20,11 @@ summed in float32, about float32's accuracy) and takes any alignment.
 This is the counterpart of the JAX package's Pallas ``flash_attention``,
 which needs Tq and Tk in whole blocks.
 
-The wrapper counts its launches in ``flash_attention.launches``
-(``ops.launch_counts()`` lists it beside the SNN kernels).
+The kernel has no backward, so the wrapper raises ``ValueError`` (on
+every device) when grad mode is on and q, k or v requires grad: it never
+returns an output cut off from autograd.  The wrapper counts its
+launches in ``flash_attention.launches`` (``ops.launch_counts()`` lists
+it beside the SNN kernels).
 """
 
 from __future__ import annotations
@@ -104,6 +107,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels import ops
 
     ops._check_backend(backend)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: call it under "
+                         "torch.no_grad() or on tensors that do not "
+                         "require grad (training attends through "
+                         "attention.chunked_attention)")
     if backend == "ref" or q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)

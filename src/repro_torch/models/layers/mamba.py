@@ -65,14 +65,16 @@ def _ssm_params(params, xc: torch.Tensor, cfg: MambaConfig):
 def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """s_t = a_t * s_{t-1} + b_t over axis 1 from s_{-1} = 0, in
     ceil(log2 T) doubling steps (Hillis-Steele): after the step of
-    offset o, (a_t, b_t) composes the o-longer run ending at t.  ``b`` is
-    overwritten with the states; ``a`` too."""
+    offset o, (a_t, b_t) composes the o-longer run ending at t.  Each step
+    builds new tensors (autograd keeps every step's inputs); ``a`` and
+    ``b`` are left as they were."""
     t = a.shape[1]
     off = 1
     while off < t:
-        b[:, off:] = b[:, :-off] * a[:, off:] + b[:, off:]
+        b = torch.cat([b[:, :off], b[:, :-off] * a[:, off:] + b[:, off:]],
+                      dim=1)
         if 2 * off < t:
-            a[:, off:] = a[:, :-off] * a[:, off:]
+            a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
         off *= 2
     return b
 

@@ -12,19 +12,32 @@ one keeps a ``ModuleList`` of layers
 
 The prefill runs attention through the flash kernel on a card
 (``attn_backend="ref"`` asks for the plain ``chunked_attention``
-instead).  The decode cache is ``{"decoder": [one dict a layer],
-"enc_out": [B, F, d] (enc-dec only)}``, each layer's dict keyed as the
-JAX package keys it: ``"kv"`` ({"k", "v"} [B, Hkv, S, D]), ``"mamba"``
-({"conv", "ssm"}), ``"rwkv"`` ({"shift", "state"}) and ``"cross"``
-({"k", "v"} over the encoder's frames).  Decode writes it in place.  The
-weights are frozen (``requires_grad=False``): the port serves this model
-and does not train it.
+instead).  ``prefill`` and ``decode_step`` run under ``torch.no_grad()``:
+serving never differentiates.  The decode cache is ``{"decoder": [one
+dict a layer], "enc_out": [B, F, d] (enc-dec only)}``, each layer's
+dict keyed as the JAX package keys it: ``"kv"`` ({"k", "v"} [B, Hkv,
+S, D]), ``"mamba"`` ({"conv", "ssm"}), ``"rwkv"`` ({"shift", "state"})
+and ``"cross"`` ({"k", "v"} over the encoder's frames).  Decode writes it
+in place.
+
+Training: the weights are trainable parameters.  ``loss(batch)`` is the
+JAX package's: ``forward_hidden`` (the decoder stack, after the encoder
+for enc-dec and with the vision prefix cut off after the final norm; the
+MoE aux loss summed over the decoder layers) then a chunked
+cross-entropy that holds ``[B, loss_chunk, Vp]`` float32 logits for one
+chunk at a time (each chunk recomputed in the backward), plus 0.01 x
+aux.  Attention on this path is always ``chunked_attention``
+(``backend="ref"``; the flash kernel has no backward).  ``remat`` (on by
+default, as in the JAX package) recomputes each layer's forward in the
+backward (``torch.utils.checkpoint``); the JAX package remats a repeating
+super-block, which computes the same values.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerKind, layer_kinds
 from repro_torch.engine.engine import resolve_device
@@ -37,13 +50,12 @@ from repro_torch.models.layers import rwkv6 as rwkv_l
 from repro_torch.models.layers.init import normal
 
 
-def _frozen(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 def _param(tensor: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(tensor, requires_grad=False)
+    return nn.Parameter(tensor)
 
 
 class Block(nn.Module):
@@ -56,7 +68,7 @@ class Block(nn.Module):
         super().__init__()
         self.kind = kind
         for name, tensors in params.items():
-            setattr(self, name, _frozen(tensors))
+            setattr(self, name, _params(tensors))
 
 
 class Model(nn.Module):
@@ -68,15 +80,19 @@ class Model(nn.Module):
     ``torch.Generator`` on ``device`` seeded with it (None: left
     uninitialized, to be loaded).  ``rwkv_chunk`` > 0: the blocked RWKV6
     prefill where it divides T (and T is longer), as the JAX model
-    chooses.
+    chooses.  ``loss_chunk``: the loss's sequence chunk; ``remat``:
+    recompute each layer in the backward.
     """
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, *,
                  attn_chunk: int = 1024, attn_backend: str = "kernel",
-                 rwkv_chunk: int = 0, device=None, seed: int | None = 0):
+                 rwkv_chunk: int = 0, loss_chunk: int = 512,
+                 remat: bool = True, device=None, seed: int | None = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
+        self.loss_chunk = loss_chunk
         self.attn_chunk = attn_chunk
         self.attn_backend = attn_backend
         self.rwkv_chunk = rwkv_chunk
@@ -166,7 +182,7 @@ class Model(nn.Module):
             gen = torch.Generator(device=dev).manual_seed(seed)
         vp, d = c.vocab_padded, c.d_model
         self.embed = _param(normal(gen, (vp, d), d ** -0.5, self.dtype, dev))
-        self.final_norm = _frozen(self._norm_init(dev))
+        self.final_norm = _params(self._norm_init(dev))
         self.layers = nn.ModuleList(self._init_block(gen, kind, dev)
                                     for kind in self.kinds)
         if not c.tie_embeddings:
@@ -179,7 +195,7 @@ class Model(nn.Module):
             self.encoder = nn.ModuleList(
                 self._init_block(gen, kind, dev, causal=False)
                 for kind in self.enc_kinds)
-            self.enc_final_norm = _frozen(self._norm_init(dev))
+            self.enc_final_norm = _params(self._norm_init(dev))
             self.enc_pos = _param(normal(gen, (c.frontend_len, d), 0.02,
                                          self.dtype, dev))
 
@@ -189,19 +205,21 @@ class Model(nn.Module):
         RWKV layers stay float32)."""
         other = Model(self.cfg, dtype, attn_chunk=self.attn_chunk,
                       attn_backend=self.attn_backend,
-                      rwkv_chunk=self.rwkv_chunk, device=self.device,
-                      seed=None)
+                      rwkv_chunk=self.rwkv_chunk, loss_chunk=self.loss_chunk,
+                      remat=self.remat, device=self.device, seed=None)
         other.load_state_dict(self.state_dict())
         return other
 
     # --- forward sub-layer -----------------------------------------------------
 
     def _ffn(self, block: Block, h):
+        """(y, aux): the FFN's output and its MoE aux loss (None for a
+        dense FFN)."""
         if block.kind.ffn == "moe":
-            return moe_l.forward(block.ffn, h, self.moe_cfg())[0]
+            return moe_l.forward(block.ffn, h, self.moe_cfg())
         if self.cfg.act == "gelu":
-            return mlp_l.gelu_mlp(block.ffn, h)
-        return mlp_l.swiglu(block.ffn, h)
+            return mlp_l.gelu_mlp(block.ffn, h), None
+        return mlp_l.swiglu(block.ffn, h), None
 
     @staticmethod
     def _kv_cache(k, v, alloc: int) -> dict:
@@ -222,17 +240,21 @@ class Model(nn.Module):
         return cache
 
     def _apply_sublayer(self, block: Block, x, *, causal=True,
-                        positions=None, enc_out=None, cache_max_len=None):
+                        positions=None, enc_out=None, cache_max_len=None,
+                        attn_backend=None):
         """One pre-norm sub-layer.  ``cache_max_len`` not None: prefill
-        mode, the layer's decode cache filled.  Returns (x, cache)."""
+        mode, the layer's decode cache filled.  ``attn_backend``: the
+        attention's (default the model's).  Returns (x, aux, cache), aux
+        the MoE aux loss (None for a dense FFN)."""
         kind = block.kind
+        backend = attn_backend or self.attn_backend
         collect = cache_max_len is not None
         cache: dict = {}
         h = self._norm_apply(block.ln1, x)
         if kind.mixer.startswith("attn"):
             acfg = self.attn_cfg(kind, causal)
             out = attn.forward(block.mixer, h, acfg, positions=positions,
-                               return_kv=collect, backend=self.attn_backend)
+                               return_kv=collect, backend=backend)
             if collect:
                 h, (k, v) = out
                 alloc = (cache_max_len if acfg.window is None
@@ -264,15 +286,15 @@ class Model(nn.Module):
             h = self._norm_apply(block.ln_cross, x)
             out = attn.forward(block.cross, h, self.attn_cfg(kind, False),
                                kv_x=enc_out, return_kv=collect,
-                               backend=self.attn_backend)
+                               backend=backend)
             if collect:
                 h, (k, v) = out
                 cache["cross"] = {"k": k.contiguous(), "v": v.contiguous()}
             else:
                 h = out
             x = x + h
-        x = x + self._ffn(block, self._norm_apply(block.ln2, x))
-        return x, cache
+        h, aux = self._ffn(block, self._norm_apply(block.ln2, x))
+        return x + h, aux, cache
 
     # --- embedding / heads -----------------------------------------------------
 
@@ -282,12 +304,29 @@ class Model(nn.Module):
             x = x + self.pos_embed[:x.shape[1]]
         return x
 
-    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """The encoder over stub front-end embeddings [B, F, d]."""
+    def _encode(self, frames: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
+        """The encoder over stub front-end embeddings [B, F, d] (its MoE
+        aux dropped, as the JAX package drops it)."""
         x = frames.to(self.device, self.dtype) + self.enc_pos[None]
         for block in self.encoder:
-            x, _ = self._apply_sublayer(block, x, causal=False)
+            x, _ = self._layer(block, x, train, causal=False)
         return self._norm_apply(self.enc_final_norm, x)
+
+    def _layer(self, block: Block, x, train: bool, **kw):
+        """One sub-layer without a cache: (x, aux).  ``train``: attention
+        through ``chunked_attention``, the layer recomputed in the backward
+        when ``remat`` is on and grad mode records."""
+        if not train:
+            return self._apply_sublayer(block, x, **kw)[:2]
+
+        def run(x):
+            return self._apply_sublayer(block, x, attn_backend="ref",
+                                        **kw)[:2]
+
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(run, x, use_reentrant=False)
+        return run(x)
 
     def _head_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -299,6 +338,88 @@ class Model(nn.Module):
         if vp != v:
             logits[..., v:] = -1e30
         return logits
+
+    def _inputs(self, tokens, frames=None, patches=None, train=False):
+        """(decoder input x [B, P + T, d], the encoder's output or None):
+        the tokens' embeddings, after the ``patches`` [B, P, d] (vision),
+        and the encoder over the ``frames`` [B, F, d] (enc-dec)."""
+        c = self.cfg
+        enc_out = None
+        if c.is_enc_dec:
+            if frames is None:
+                raise ValueError(f"{c.name} is an encoder-decoder: it "
+                                 f"needs frames=")
+            enc_out = self._encode(torch.as_tensor(frames), train)
+        x = self._embed(torch.as_tensor(tokens))
+        if c.frontend == "vision":
+            if patches is None:
+                raise ValueError(f"{c.name} takes a vision prefix: it "
+                                 f"needs patches=")
+            x = torch.cat([torch.as_tensor(patches).to(self.device,
+                                                        self.dtype), x],
+                          dim=1)
+        return x, enc_out
+
+    # --- training ----------------------------------------------------------------
+
+    def forward_hidden(self, batch: dict):
+        """The decoder stack -> (hidden states [B, T, d] after the final
+        norm, MoE aux loss summed over the decoder layers, f32 0-d)."""
+        x, enc_out = self._inputs(batch["tokens"], batch.get("frames"),
+                                  batch.get("patches"), train=True)
+        n_prefix = x.shape[1] - batch["tokens"].shape[1]
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in self.layers:
+            x, a = self._layer(block, x, True, positions=positions,
+                               enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        x = self._norm_apply(self.final_norm, x)
+        return x[:, n_prefix:], aux
+
+    def _chunked_loss(self, h, labels, mask=None) -> torch.Tensor:
+        """Mean cross-entropy without materializing [B, T, Vp] logits:
+        ``loss_chunk`` positions at a time, each chunk's logits recomputed
+        in the backward; the padded vocabulary columns masked to
+        -1e30."""
+        b, t, _ = h.shape
+        chunk = min(self.loss_chunk, t)
+        assert t % chunk == 0, (t, chunk)
+        w = self._head_matrix()
+        v, vp = self.cfg.vocab_size, self.cfg.vocab_padded
+        labels = torch.as_tensor(labels).to(h.device, torch.int64)
+        mask = (torch.ones(labels.shape, dtype=torch.float32,
+                           device=h.device) if mask is None
+                else torch.as_tensor(mask).to(h.device, torch.float32))
+        pad = torch.arange(vp, device=h.device) >= v
+
+        def one(h_c, y_c, m_c):
+            logits = (h_c @ w).float()
+            if vp != v:
+                logits = logits.masked_fill(pad, -1e30)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, y_c[..., None])[..., 0]
+            return torch.sum((lse - gold) * m_c), torch.sum(m_c)
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, t, chunk):
+            args = (h[:, i:i + chunk], labels[:, i:i + chunk],
+                    mask[:, i:i + chunk])
+            s, n = (checkpoint(one, *args, use_reentrant=False)
+                    if torch.is_grad_enabled() else one(*args))
+            tot, cnt = tot + s, cnt + n
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy + 0.01 x the MoE aux loss.
+        batch: ``tokens`` and ``labels`` int[B, T], optional ``loss_mask``
+        [B, T], and ``frames`` / ``patches`` where the config takes
+        them."""
+        h, aux = self.forward_hidden(batch)
+        ce = self._chunked_loss(h, batch["labels"], batch.get("loss_mask"))
+        return ce + 0.01 * aux
 
     # --- decode ------------------------------------------------------------------
 
@@ -351,8 +472,9 @@ class Model(nn.Module):
             if acfg.use_bias:
                 h = h + block.cross["bo"]
             x = x + h
-        return x + self._ffn(block, self._norm_apply(block.ln2, x))
+        return x + self._ffn(block, self._norm_apply(block.ln2, x))[0]
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache: dict, cache_len):
         """One serving step.  tokens: int[B, 1]; cache_len: int or int[B]
         (per-sequence lengths).  Returns (logits f32[B, Vp], cache), the
@@ -368,6 +490,7 @@ class Model(nn.Module):
         x = self._norm_apply(self.final_norm, x)
         return self._logits(x)[:, 0], cache
 
+    @torch.no_grad()
     def prefill(self, tokens, max_len: int, lengths=None, *, frames=None,
                 patches=None):
         """Process a prompt, build the decode cache.
@@ -380,19 +503,7 @@ class Model(nn.Module):
         Returns (logits f32[B, Vp] for the last valid position, cache,
         cache_len).
         """
-        c = self.cfg
-        enc_out = None
-        if c.is_enc_dec:
-            if frames is None:
-                raise ValueError(f"{c.name} is an encoder-decoder: prefill "
-                                 f"needs frames=")
-            enc_out = self._encode(frames)
-        x = self._embed(tokens)
-        if c.frontend == "vision":
-            if patches is None:
-                raise ValueError(f"{c.name} takes a vision prefix: prefill "
-                                 f"needs patches=")
-            x = torch.cat([patches.to(self.device, self.dtype), x], dim=1)
+        x, enc_out = self._inputs(tokens, frames, patches)
         t_total = x.shape[1]
         if t_total > max_len:
             raise ValueError(f"a prompt of {t_total} tokens does not fit a "
@@ -400,7 +511,7 @@ class Model(nn.Module):
         positions = torch.arange(t_total, device=x.device)
         layers = []
         for block in self.layers:
-            x, layer_cache = self._apply_sublayer(
+            x, _, layer_cache = self._apply_sublayer(
                 block, x, positions=positions, enc_out=enc_out,
                 cache_max_len=max_len)
             layers.append(layer_cache)

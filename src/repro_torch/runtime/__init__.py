@@ -1,0 +1,6 @@
+"""repro_torch.runtime — fault-tolerant training loop, straggler watchdog."""
+
+from repro_torch.runtime.train_loop import (SimulatedFailure, TrainLoop,
+                                            TrainLoopConfig)
+
+__all__ = ["SimulatedFailure", "TrainLoop", "TrainLoopConfig"]

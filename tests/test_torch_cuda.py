@@ -1417,3 +1417,94 @@ def test_cuda_meshed_engine_and_trainer_equal_the_local_ones(cuda):
                 device="cuda")
     assert torch.equal(m.weights, loc.weights)
     assert torch.equal(m.neuron_class, loc.neuron_class)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_grad(cuda):
+    """The kernel has no backward: a grad-requiring input under grad mode
+    raises (no launch); under ``no_grad`` the kernel launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = (torch.randn(1, 2, 64, 64, device=cuda) for _ in range(3))
+    q.requires_grad_(True)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == launches
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert flash_attention.launches == launches + 1
+    assert not out.requires_grad
+
+
+LM_ARCHS = ["command-r-35b", "gemma3-1b", "grok-1-314b", "internvl2-26b",
+            "jamba-1.5-large-398b", "llama3-405b", "mixtral-8x22b",
+            "rwkv6-7b", "starcoder2-3b", "whisper-small"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_train_steps_equal_the_cpu_run(cuda, arch):
+    """Three AdamW steps of the reduced model in float32 (TF32 off) on the
+    card and on the CPU from the same weights and batches: losses within
+    1e-4 relative; no flash launch while training."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import frontend_inputs, make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+
+    cfg = reduced(get_config(arch))
+    src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=64,
+                          batch_size=4, seed=0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = {}
+        for dev in (cuda, torch.device("cpu")):
+            model = Model(cfg, torch.float32, loss_chunk=32, attn_chunk=32,
+                          device="cpu", seed=5).to(dev)
+            opt = AdamW(AdamWConfig(lr=cosine_schedule(1e-3, 1, 3)))
+            step = make_train_step(model, opt)
+            params = dict(model.named_parameters())
+            state = (params, opt.init(params))
+            ops.reset_launch_counts()
+            out = []
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in src.batch(i).items()}
+                batch.update(frontend_inputs(cfg, 4, dev))
+                p, s, m = step(*state, batch)
+                state = (p, s)
+                out.append(float(m["loss"]))
+            assert ops.launch_counts()["flash_attention"] == 0
+            losses[dev.type] = out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_train_loop_restores_onto_either_device(cuda, tmp_path):
+    """A checkpoint the loop wrote from the card restores onto the CPU
+    and back (``restore_onto``), bf16 leaves included, bit for bit."""
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+
+    state = ({"w": torch.randn(4, 3, device=cuda).to(torch.bfloat16)},
+             {"step": torch.tensor(7, dtype=torch.int32, device=cuda)})
+
+    def step_fn(params, opt_state, batch, gen):
+        assert gen.device.type == "cuda"
+        return params, opt_state, {"loss": params["w"].float().sum()}
+
+    loop = TrainLoop(step_fn, TrainLoopConfig(total_steps=2,
+                                              checkpoint_every=1),
+                     str(tmp_path), batch_fn=lambda s: None)
+    loop.run(state)
+    cpu_like = ({"w": torch.zeros(4, 3, dtype=torch.bfloat16)},
+                {"step": torch.zeros((), dtype=torch.int32)})
+    (p, s), step = loop.restore_onto(cpu_like)
+    assert step == 1 and p["w"].device.type == "cpu"
+    assert torch.equal(p["w"], state[0]["w"].cpu())
+    (p, s), _ = loop.restore_onto(state)
+    assert p["w"].device == state[0]["w"].device
+    assert torch.equal(p["w"], state[0]["w"]) and int(s["step"]) == 7

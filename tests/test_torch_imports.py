@@ -39,6 +39,7 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 
 def test_importing_the_serving_stack_loads_no_jax():
+    """The serving and training stacks' modules load no JAX module."""
     code = ("import sys, repro_torch.serving.snn, repro_torch.launch.serve,"
             " repro_torch.convert, repro_torch.launch.mnist_stdp,"
             " repro_torch.launch.quickstart, repro_torch.core.network,"
@@ -52,7 +53,11 @@ def test_importing_the_serving_stack_loads_no_jax():
             " repro_torch.bench.plot_history, repro_torch.distributed,"
             " repro_torch.distributed.snn_mesh, repro_torch.launch.serve_lm,"
             " repro_torch.models.layers.moe, repro_torch.models.layers.mamba,"
-            " repro_torch.models.layers.rwkv6, repro_torch.configs.shapes; "
+            " repro_torch.models.layers.rwkv6, repro_torch.configs.shapes,"
+            " repro_torch.optim, repro_torch.optim.compression,"
+            " repro_torch.runtime, repro_torch.data.synthetic,"
+            " repro_torch.data.loader, repro_torch.launch.train,"
+            " repro_torch.launch.train_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -61,29 +66,27 @@ def test_importing_the_serving_stack_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# JAX package-level names whose modules the port does not have yet
-# (``data/loader.py``, ``data/synthetic.py``)
-UNPORTED = {"repro.data": {"ShardedLoader", "SyntheticTokens"}}
-UNPORTED_MODULES = ("data/loader.py", "data/synthetic.py")
+# packages whose ``__all__`` equals the JAX package's, name for name
+SAME_ALL = ("repro.data", "repro.optim", "repro.runtime")
 
 
 @pytest.mark.parametrize("package", ["repro.core", "repro.configs",
-                                     "repro.data"])
+                                     "repro.data", "repro.optim",
+                                     "repro.runtime"])
 def test_package_level_names_match_the_jax_package(package):
-    """Every package-level name of the JAX package whose module is
-    ported resolves at the port's package level, to an object of the
-    same name (and a module to the port's counterpart)."""
+    """Every package-level name of the JAX package resolves at the port's
+    package level, to an object of the same name (and a module to the
+    port's counterpart); ``data``, ``optim`` and ``runtime`` export
+    exactly the JAX package's names."""
     import importlib
     import types
 
     jpkg = importlib.import_module(package)
     pkg = importlib.import_module(package.replace("repro", "repro_torch",
                                                   1))
-    skip = UNPORTED.get(package, set())
+    if package in SAME_ALL:
+        assert sorted(pkg.__all__) == sorted(jpkg.__all__)
     for name in jpkg.__all__:
-        if name in skip:
-            assert not hasattr(pkg, name)
-            continue
         assert name in pkg.__all__, f"{pkg.__name__}.__all__ lacks {name}"
         got, want = getattr(pkg, name), getattr(jpkg, name)
         if isinstance(want, types.ModuleType):
@@ -91,10 +94,6 @@ def test_package_level_names_match_the_jax_package(package):
                                                          "repro_torch", 1)
         elif getattr(want, "__name__", None) == name:
             assert got.__name__ == name
-    for path in UNPORTED_MODULES:
-        assert not (REPO / "src" / "repro_torch" / path).exists(), (
-            f"{path} is ported: export its names and drop it from "
-            f"UNPORTED")
 
 
 def test_registered_configs_and_package_values_match_the_jax_package():

@@ -239,7 +239,35 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    CPU from the same weights, losses within 1e-4 relative; (e)
    ``flash_attention`` with a grad-requiring q under grad mode raises,
    launching nothing.  Prints the phase's wall time.
-14. Prints the kernels' JSON line, then, last,
+14. The LM's distribution side and the dry run: (d) first, on the host,
+   ``launch.dryrun`` of gemma3-1b ``train_4k`` on the pod (32 x 8) and
+   the multi-pod (2 x 32 x 8) mesh, each in a fake process group of
+   256 / 512 ranks (wall time, per-device bytes traced and estimated,
+   ``fits_80GB`` and the roofline's dominant term printed; it must fit),
+   and of phase 13's shape on a (1, 1) mesh; (a) a process group of one
+   rank over NCCL on ``cuda:0`` and a (data 1, model 1) ``DeviceMesh``:
+   gemma3-1b at full width in bf16, its params placed by
+   ``to_shardings`` under ``use_mesh``, a 1,000-token prefill through
+   ``make_prefill_step`` (26 flash launches) and 16 decode steps through
+   ``make_serve_step``, each call's logits held against the unsharded
+   port's same call from the same weights (``torch.equal`` printed; where
+   they differ, the gap and the first layer it shows in; the greedy
+   tokens must be equal), then 4 ``make_train_step`` steps at phase 13's
+   shape under deterministic algorithms, params and AdamW states
+   bit-equal to the unsharded steps, the sharded run's peak memory
+   printed beside the dry run's for the same config; a line says that a
+   multi-rank run needs the four-card machine; (b) ``pipelined_apply``
+   over ``["cuda:0", "cuda:0"]``: gemma3-1b's 26 layers as 2 stages of
+   13, 4 microbatches of a B 8, T 512 bf16 prefill forward (104 flash
+   launches), ``torch.equal`` to the layers applied in sequence, wall
+   times of both; (c) ``launch.dryrun_snn``'s shards of the (32, 8) mesh
+   on the card (infer: 512 neurons x 128 samples, T 72, 784 inputs,
+   through the pre-packed serving kernel; train: 512 neurons, 8 samples,
+   one training window launch a sample), each equal to its plain version
+   and timed against its bound; the launches of (a)-(c)
+   (``distributed_launches`` in the kernels' JSON).  Prints the phase's
+   wall time.
+15. Prints the kernels' JSON line, then, last,
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Device times are the profiler's; where it records none in 5 fresh
@@ -3849,6 +3877,367 @@ def phase_lm_train() -> dict:
             "lm_trained_prefill_launches": served}
 
 
+# --- the distribution side: the sharded program, the pipeline, the SNN ----
+# --- shards of the production deployment, the dry run ----------------------
+
+# (a): the sharded prefill's prompt, its decode steps and cache, the
+# training steps (phase 13's batch and sequence)
+DIST_PROMPT, DIST_DECODE, DIST_MAX_LEN, DIST_TRAIN_STEPS = 1000, 16, 1024, 4
+# (b): stages, microbatches and the batch they split
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 2, 4, 8, 512
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_dryruns(card: str):
+    """Phase 14 (d): the dry run of gemma3-1b ``train_4k`` on the pod and
+    the multi-pod mesh (a fake group of 256 / 512 ranks, on the host),
+    then of phase 13's shape on a (1, 1) mesh for (a).  Returns that
+    last cell."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        res = dryrun.lower_cell("gemma3-1b", SHAPES["train_4k"], multi_pod)
+        wall = time.perf_counter() - t0
+        rl = res["roofline"]
+        print(f"dist (d): dryrun gemma3-1b train_4k on {res['mesh']} "
+              f"({res['chips']} ranks, {res['rules']}): wall {wall} s on the "
+              f"host; per-device traced peak {res['peak_bytes_per_device']} "
+              f"B, est_peak {res['est_peak_bytes']} B, fits_80GB "
+              f"{res['fits_80GB']} (traced {res['fits_80GB_traced']}); "
+              f"dominant {rl['dominant']} (compute {rl['t_compute_s']} s, "
+              f"memory {rl['t_memory_s']} s, collective "
+              f"{rl['t_collective_s']} s by axis {rl['coll_by_axis']}); "
+              f"useful FLOPs {res['useful_flops_frac']}; {card}", flush=True)
+        if res["status"] != "ok" or not res["fits_80GB"]:
+            fail(f"the dry run of gemma3-1b train_4k on {res['mesh']} "
+                 f"failed or does not fit: {res}")
+    print("dist (d): llama3-405b train_4k on 2x32x8 traces for ~6 minutes "
+          "on a host: a CLI run (python -m repro_torch.launch.dryrun --arch "
+          "llama3-405b --shape train_4k --mesh multipod), not this phase",
+          flush=True)
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                                "model"))
+        return dryrun.lower_cell(
+            "gemma3-1b", ShapeSpec("phase13", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train"), mesh=mesh)
+
+
+def full_of(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def first_divergence(plain, sharded, params, mesh, rules, prompt) -> str:
+    """Where the sharded prefill's hidden state first leaves the
+    unsharded one's: the embedding or the first layer whose output
+    differs, with the gap there."""
+    from repro_torch.distributed import sharding as shd
+
+    full = full_of
+
+    pos = torch.arange(prompt.shape[1], device=prompt.device)
+    with torch.no_grad():
+        xu = plain._embed(prompt)
+        with shd.use_mesh(mesh, rules), shd.replicating():
+            xs = sharded._embed(prompt)
+            if not torch.equal(full(xs), xu):
+                return f"the embedding, gap {float((full(xs) - xu).abs().max())}"
+            for i, (bu, bs) in enumerate(zip(plain.layers, sharded.layers)):
+                xu = plain._apply_sublayer(bu, xu, positions=pos)[0]
+                xs = sharded._apply_sublayer(bs, xs, positions=pos)[0]
+                if not torch.equal(full(xs), xu):
+                    gap = float((full(xs).float() - xu.float()).abs().max())
+                    return f"layer {i} ({bu.kind}), gap {gap}"
+    return "no layer output differs (the head)"
+
+
+def dist_sharded_serving(mesh, card: str) -> int:
+    """Phase 14 (a), serving: gemma3-1b at full width in bf16, its params
+    placed by ``to_shardings`` under ``use_mesh``, a 1,000-token prefill
+    through ``make_prefill_step`` and 16 decode steps through
+    ``make_serve_step``, against the unsharded port's same calls from
+    the same weights.  Returns the sharded prefill's flash launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.specs import place_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    rules = shd.use_rules()
+    plain = Model(cfg, torch.bfloat16, device=dev, seed=0)
+    sharded = Model(cfg, torch.bfloat16, device=dev, seed=0)
+    prompt = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, (1, DIST_PROMPT))).to(dev)
+    def greedy(prefill_step, decode_step):
+        """The prefill's and 16 greedy decode steps' logits, the tokens
+        fed, and the prefill's and a decode step's wall s."""
+        t0 = time.perf_counter()
+        logits, cache, n = prefill_step()
+        logits = full_of(logits)
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
+        out, toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(DIST_DECODE):
+            toks.append(out[-1].argmax(-1, keepdim=True))
+            logits, cache = decode_step(toks[-1], cache, n + i)
+            out.append(full_of(logits))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / DIST_DECODE)
+        return out, toks, walls
+
+    want, toks_u, _ = greedy(lambda: plain.prefill(prompt, DIST_MAX_LEN),
+                             plain.decode_step)
+    with shd.use_mesh(mesh, rules):
+        params = place_params(sharded, mesh, rules)
+        step = make_serve_step(sharded)
+        ops.reset_launch_counts()
+        got, toks_s, walls = greedy(
+            lambda: make_prefill_step(sharded, DIST_MAX_LEN)(
+                params, {"tokens": prompt}),
+            lambda tok, cache, n: step(params, tok, cache, n))
+        flash = ops.launch_counts()["flash_attention"]
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    gaps = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    same_tokens = all(torch.equal(a, b) for a, b in zip(toks_s, toks_u))
+    print(f"dist (a): gemma3-1b sharded on the (data 1, model 1) mesh, "
+          f"placed by to_shardings: a {DIST_PROMPT}-token prefill through "
+          f"make_prefill_step ({flash} flash launches, {walls[0]} s), "
+          f"{DIST_DECODE} decode steps through make_serve_step ({walls[1]} "
+          f"s a step; both on the host's clock); logits torch.equal to the "
+          f"unsharded port's: {equal}; largest gap by call {gaps}; greedy "
+          f"tokens equal {same_tokens}; {card}", flush=True)
+    if not equal:
+        print(f"dist (a): the first difference: "
+              f"{first_divergence(plain, sharded, params, mesh, rules, prompt)}",
+              flush=True)
+    if flash != cfg.n_layers or not same_tokens:
+        fail(f"the sharded gemma3-1b served other tokens than the unsharded "
+             f"one, or launched flash {flash} times ({cfg.n_layers} layers)")
+    return flash
+
+
+def dist_sharded_training(mesh, dry11: dict, card: str) -> None:
+    """Phase 14 (a), training: 4 ``make_train_step`` steps at phase 13's
+    shape (B 4, T 1,024, remat, AdamW states in f32) under deterministic
+    algorithms, sharded on the (1, 1) mesh and unsharded from the same
+    weights: params and AdamW states bit-equal.  The sharded run's peak
+    memory beside the dry run's of the same config on a (1, 1) mesh."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.specs import place_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          batch_size=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                src.batch(i).items()} for i in range(DIST_TRAIN_STEPS)]
+
+    def run(placed: bool):
+        model = Model(cfg, torch.bfloat16, loss_chunk=TRAIN_LOSS_CHUNK,
+                      attn_chunk=512, device=dev, seed=0)
+        opt = AdamW(AdamWConfig(lr=cosine_schedule(1e-3, 2, TRAIN_STEPS)))
+        step = make_train_step(model, opt)
+        rules = shd.use_rules()
+        ctx = shd.use_mesh(mesh, rules) if placed else contextlib.nullcontext()
+        losses, dts = [], []
+        with ctx:
+            params = (place_params(model, mesh, rules) if placed
+                      else dict(model.named_parameters()))
+            state = (params, opt.init(params))
+            for b in batches:
+                t0 = time.perf_counter()
+                p, s, m = step(*state, b)
+                losses.append(float(m["loss"]))
+                dts.append(time.perf_counter() - t0)
+                state = (p, s)
+
+        def host(t):
+            return full_of(t).detach().cpu()
+
+        p, s = state
+        out = ({k: host(v) for k, v in p.items()},
+               {mv: {k: host(v) for k, v in s[mv].items()}
+                for mv in ("m", "v")})
+        return losses, dts, out
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses_u, dts_u, (pu, su) = run(False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses_s, dts_s, (ps, ss) = run(True)
+        peak = torch.cuda.max_memory_allocated()
+        launches = ops.launch_counts()["flash_attention"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = (all(torch.equal(ps[k], pu[k]) for k in pu)
+             and all(torch.equal(ss[mv][k], su[mv][k]) for mv in su
+                     for k in pu))
+    worst = max(float((ps[k].float() - pu[k].float()).abs().max())
+                for k in pu)
+    print(f"dist (a): gemma3-1b training, {DIST_TRAIN_STEPS} steps at B "
+          f"{TRAIN_BATCH}, T {TRAIN_SEQ}, remat, deterministic algorithms: "
+          f"losses sharded {losses_s}, unsharded {losses_u}; step s sharded "
+          f"{dts_s}, unsharded {dts_u}; params and AdamW states bit-equal: "
+          f"{equal} (largest param gap {worst}); flash launches {launches}; "
+          f"peak memory allocated by the sharded run {peak} B, the dry run's "
+          f"(1, 1) cell: est_peak {dry11['est_peak_bytes']} B, traced peak "
+          f"{dry11['peak_bytes_per_device']} B; {card}", flush=True)
+    if not equal or launches:
+        fail("the sharded gemma3-1b training steps are not bit-equal to the "
+             "unsharded ones (or launched flash)")
+
+
+def dist_pipeline(card: str) -> int:
+    """Phase 14 (b): gemma3-1b's 26 layers as 2 stages of 13 on
+    ``cuda:0`` twice, 4 microbatches of a B 8, T 512 bf16 prefill forward
+    (flash in every layer) through ``pipelined_apply``, against the
+    layers applied in sequence.  Returns the pipelined run's flash
+    launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import pipelined_apply
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    model = Model(cfg, torch.bfloat16, device=dev, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(43).integers(
+        0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ))).to(dev)
+    pos = torch.arange(PIPE_SEQ, device=dev)
+    half = cfg.n_layers // PIPE_STAGES
+    stages = [model.layers[i * half:(i + 1) * half]
+              for i in range(PIPE_STAGES)]
+
+    def stage_fn(layers, h):
+        for block in layers:
+            h = model._apply_sublayer(block, h, positions=pos)[0]
+        return h
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        x = model._embed(tokens)
+        micro = x.reshape(PIPE_MICRO, PIPE_BATCH // PIPE_MICRO, PIPE_SEQ,
+                          cfg.d_model)
+
+        def seq():
+            return torch.stack([stage_fn(model.layers, m) for m in micro])
+
+        def pipe():
+            return pipelined_apply(["cuda:0"] * PIPE_STAGES, stage_fn,
+                                   stages, micro)
+
+        seq()                                    # warm-up
+        want, t_seq = timed(seq)
+        ops.reset_launch_counts()
+        got, t_pipe = timed(pipe)
+        launches = ops.launch_counts()["flash_attention"]
+        _, t_pipe2 = timed(pipe)
+        _, t_seq2 = timed(seq)
+    equal = torch.equal(got, want)
+    print(f"dist (b): pipelined_apply over cuda:0 x {PIPE_STAGES} (stages of "
+          f"{half} layers), {PIPE_MICRO} microbatches of "
+          f"{PIPE_BATCH // PIPE_MICRO} x {PIPE_SEQ} tokens: torch.equal to "
+          f"the layers in sequence: {equal}; flash launches {launches}; "
+          f"wall s sequential {t_seq}, {t_seq2}, pipelined {t_pipe}, "
+          f"{t_pipe2} (S stages on one card: no overlap); {card}", flush=True)
+    if not equal or launches != cfg.n_layers * PIPE_MICRO:
+        fail(f"the pipeline differs from sequential application or launched "
+             f"flash {launches} times")
+    return launches
+
+
+def dist_snn_shards(card: str) -> dict:
+    """Phase 14 (c): one device's shards of the dry run's SNN deployment
+    on the (32, 8) mesh, on the card: each equal to its plain version,
+    timed against its bound.  Returns their launches."""
+    from repro_torch.launch import dryrun_snn
+
+    run = dryrun_snn.run_shard(False, "cuda")
+    for kind in ("infer", "train"):
+        r = run[kind]
+        print(f"dist (c): dryrun_snn {kind} shard ({run['neurons']} neurons, "
+              f"{run['samples'] if kind == 'infer' else dryrun_snn.STREAM} "
+              f"samples, T {dryrun_snn.T}, {dryrun_snn.N_INPUTS} inputs): "
+              f"equal to its plain version {r['equal']}; launches "
+              f"{r['launches']}; ms {r['ms']} against bound {r['bound_ms']} "
+              f"({r['bound_by']}), plain ms {r['plain_ms']}; {card}",
+              flush=True)
+    if "infer_window_batch" not in run["infer"]["launches"] \
+            or not run["train"]["launches"]:
+        fail(f"the SNN shards did not launch their kernels: {run}")
+    launches = dict(run["infer"]["launches"])
+    for k, v in run["train"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def phase_distributed(card: str) -> dict:
+    """Phase 14: (d) the dry runs on the host first (fake groups), then (a)
+    the sharded program on a one-rank NCCL group, (b) the pipeline, (c)
+    the SNN shards.  Returns every kernel's launches in (a)-(c)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_phase = time.perf_counter()
+    dry11 = dist_dryruns(card)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        print("dist (a): a process group of one rank over NCCL on cuda:0, "
+              "a (data 1, model 1) DeviceMesh. NCCL puts no two ranks of one "
+              "communicator on one card, so a multi-rank run waits for the "
+              "four-card machine (torchrun --nproc-per-node 4, one rank a "
+              "card)", flush=True)
+        flash = dist_sharded_serving(mesh, card)
+        torch.cuda.empty_cache()
+        dist_sharded_training(mesh, dry11, card)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    flash += dist_pipeline(card)
+    torch.cuda.empty_cache()
+    launches = dist_snn_shards(card)
+    launches["flash_attention"] = flash
+    print(f"dist: launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -3930,7 +4319,11 @@ def main() -> None:
     # trained weights served, every family reduced, the flash guard)
     train_flash = phase_lm_train()
 
-    # phase 14: the kernels' JSON line, then the last line
+    # phase 14: the distribution side (the dry runs, the sharded program
+    # on one card, the pipeline, the SNN deployment's shards)
+    dist_launches = phase_distributed(card)
+
+    # phase 15: the kernels' JSON line, then the last line
 
     kernels = []
     for kname, source, shape, line, launches in (
@@ -3968,6 +4361,7 @@ def main() -> None:
         entry["mesh_launches"] = mesh_launches[kname]
         entry["harness_launches"] = harness_launches[kname]
         entry["lm_family_launches"] = family_launches.get(kname, 0)
+        entry["distributed_launches"] = dist_launches.get(kname, 0)
         if kname == "train_window_batch_encode":
             # the trainer's launches are the stream form: its time per
             # launch of 8 samples leads, the one-sample launch beside it
@@ -4005,6 +4399,7 @@ def main() -> None:
             "mesh_launches": mesh_launches[kname],
             "harness_launches": harness_launches[kname],
             "lm_family_launches": family_launches.get(kname, 0),
+            "distributed_launches": dist_launches.get(kname, 0),
             **{k: main_t[k] for k in GRAPH_KEYS if k in main_t},
             **{shape: {k: t[k] for k in ("ms", "call_ms", "plain_ms",
                                          "bound_ms", "bound_by", "ms_cold")
@@ -4020,6 +4415,7 @@ def main() -> None:
         "harness_launches": harness_launches["flash_attention"],
         "lm_family_launches": family_launches["flash_attention"],
         "lm_family_launches_by_model": family_by_model,
+        "distributed_launches": dist_launches["flash_attention"],
         **train_flash,
         "max_abs_err": max(t["max_abs_err"] for t in flash.values()),
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

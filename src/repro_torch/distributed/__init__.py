@@ -1,7 +1,16 @@
-"""repro_torch.distributed — placement of the SNN window engine on a
-(data x neuron) device grid (:mod:`repro_torch.distributed.snn_mesh`,
-imported on its own) and the logical-axis rules behind it."""
+"""repro_torch.distributed — logical-axis sharding rules and their
+DTensor placements (``sharding``), the LM's spec trees (``specs``), the
+single-controller pipeline schedule (``pipeline``), and placement of the
+SNN window engine on a (data x neuron) device grid
+(:mod:`repro_torch.distributed.snn_mesh`, imported on its own).
 
-from repro_torch.distributed.sharding import DEFAULT_RULES, logical_spec
+``placements(mesh, rules, names)`` is the port's counterpart of the JAX
+package's ``named_sharding``: DTensor placements, one per mesh dim.
+"""
 
-__all__ = ["DEFAULT_RULES", "logical_spec"]
+from repro_torch.distributed.sharding import (DEFAULT_RULES, constrain,
+                                              current_mesh, logical_spec,
+                                              placements, use_mesh)
+
+__all__ = ["DEFAULT_RULES", "constrain", "current_mesh", "logical_spec",
+           "placements", "use_mesh"]

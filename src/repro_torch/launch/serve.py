@@ -34,6 +34,10 @@ request did not finish.
 
 Everything runs on ``--device`` (``cuda`` unless ``cpu`` asks for the
 plain versions).
+
+``make_serve_step`` / ``make_prefill_step`` build the decode and prefill
+steps the dry run traces (``repro_torch.launch.dryrun``), as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -71,6 +75,36 @@ from repro_torch.serving.overload import storm_policy
 
 SRC = Path(__file__).resolve().parents[2]
 TRACES = SRC.parent / "benchmarks" / "traces"
+
+
+def make_serve_step(model: Model):
+    """decode: ``serve_step(params, tokens [B, 1], cache, cache_len) ->
+    (logits [B, Vp], cache')``, the JAX package's signature: ``params``
+    (a flat dict of named tensors, plain or DTensors) are bound to the
+    model first (``launch.train.bind_params``), the cache written in
+    place."""
+    from repro_torch.launch.train import bind_params
+
+    def serve_step(params, tokens, cache, cache_len):
+        bind_params(model, params)
+        return model.decode_step(tokens, cache, cache_len)
+
+    return serve_step
+
+
+def make_prefill_step(model: Model, max_len: int):
+    """prefill: ``prefill_step(params, batch) -> (last logits, cache,
+    cache_len)``; ``batch`` holds ``tokens`` and, where the config takes
+    them, ``frames`` / ``patches``."""
+    from repro_torch.launch.train import bind_params
+
+    def prefill_step(params, batch):
+        bind_params(model, params)
+        return model.prefill(batch["tokens"], max_len,
+                             frames=batch.get("frames"),
+                             patches=batch.get("patches"))
+
+    return prefill_step
 
 
 def _serve_snn(args) -> int:

@@ -17,6 +17,11 @@ grads in ``accum_dtype`` (bf16 halves the grad-buffer footprint; the
 stochastic-rounding AdamW makes that loss of precision safe), divided by
 A at the end, as the JAX package does.
 
+Under a mesh (``repro_torch.distributed.sharding.use_mesh``) the params
+are DTensors (placed by ``distributed.specs.place_params``), each
+gradient is redistributed to its parameter's placements
+(:func:`_constrain_like_params`), and the AdamW states take them too.
+
     python -m repro_torch.launch.train --arch gemma3-1b --steps 5 \\
         --reduced --device cpu
 
@@ -33,6 +38,9 @@ from typing import Any
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                             replicating)
+from repro_torch.distributed.specs import param_logical_tree
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import AdamW
 
@@ -56,6 +64,17 @@ def bind_params(model: nn.Module, params: dict) -> dict:
     return bound
 
 
+def _constrain_like_params(grads: dict, params: dict) -> dict:
+    """Under a mesh, every gradient redistributed to its parameter's
+    placements (the reduce-scatter into the FSDP layout, where DTensor's
+    backward leaves partial sums or another split); without one, the
+    gradients as they are."""
+    if current_mesh() is None:
+        return grads
+    logical = param_logical_tree(params)
+    return {k: constrain(g, *logical[k]) for k, g in grads.items()}
+
+
 def _micro(batch: dict, i: int, accum_steps: int) -> dict:
     """Microbatch ``i`` of ``accum_steps``: rows [i*B/A, (i+1)*B/A)."""
     out = {}
@@ -75,9 +94,16 @@ def make_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
             grads = torch.autograd.grad(loss, list(bound.values()),
                                         allow_unused=True,
                                         materialize_grads=True)
-        return loss.detach(), dict(zip(bound, grads))
+        return loss.detach(), _constrain_like_params(
+            dict(zip(bound, grads)), bound)
 
     def train_step(params, opt_state, batch, gen=None):
+        # under a mesh the backward and the update meet the plain tensors
+        # the model and AdamW make for themselves (see replicating)
+        with replicating():
+            return _train_step(params, opt_state, batch, gen)
+
+    def _train_step(params, opt_state, batch, gen):
         if accum_steps == 1:
             loss, grads = grad_fn(params, batch)
         else:
@@ -87,8 +113,7 @@ def make_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
                                      f" split into {accum_steps} "
                                      f"microbatches")
             loss = None
-            grads = {k: torch.zeros(p.shape, dtype=accum_dtype,
-                                    device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=accum_dtype)
                      for k, p in params.items()}
             for i in range(accum_steps):
                 l_i, g = grad_fn(params, _micro(batch, i, accum_steps))

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers.init import normal
 
 
@@ -86,6 +87,9 @@ def forward(params, x: torch.Tensor, cfg: MambaConfig,
     return_state=True additionally returns the decode cache (the last
     ``d_conv - 1`` conv inputs, zeros before the first, and the final ssm
     state)."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(forward, params, x, cfg,
+                                        return_state=return_state)
     t = x.shape[1]
     dc = cfg.d_conv
     xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)    # [B, T, di] each
@@ -124,7 +128,10 @@ def init_cache(batch: int, cfg: MambaConfig, dtype=torch.bfloat16,
 
 def decode_step(params, x: torch.Tensor, cache: dict, cfg: MambaConfig):
     """x: [B, 1, d] -> (y [B, 1, d], cache), the cache written in
-    place."""
+    place (under a mesh: ``sharding.replicated_call``)."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(decode_step, params, x, cfg,
+                                        cache=cache)
     xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)    # [B, 1, di]
     hist = torch.cat([cache["conv"], xi.to(cache["conv"].dtype)], dim=1)
     xc = torch.einsum("bcd,cd->bd", hist, params["conv_w"]) + params["conv_b"]

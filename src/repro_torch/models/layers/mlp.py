@@ -1,7 +1,8 @@
 """Feed-forward blocks: SwiGLU (modern LMs) and GELU (whisper).
 
-Plain matrix products in the model's dtype (``torch.matmul``): the JAX
-package leaves them to XLA, outside any kernel of its own.
+Plain matrix products in the model's dtype (``torch.matmul``; under a
+sequence-parallel mesh ``sharding.matmul``): the JAX package leaves them
+to XLA, outside any kernel of its own.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import matmul
 from repro_torch.models.layers.init import normal
 
 
@@ -20,8 +22,8 @@ def swiglu_init(gen: torch.Generator | None, d: int, ff: int,
 
 
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ params["wg"]) * (x @ params["wi"])
-    return h @ params["wo"]
+    h = F.silu(matmul(x, params["wg"])) * matmul(x, params["wi"])
+    return matmul(h, params["wo"])
 
 
 def gelu_mlp_init(gen: torch.Generator | None, d: int, ff: int,
@@ -34,5 +36,5 @@ def gelu_mlp_init(gen: torch.Generator | None, d: int, ff: int,
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(x @ params["wi"] + params["bi"], approximate="tanh")
-    return h @ params["wo"] + params["bo"]
+    h = F.gelu(matmul(x, params["wi"]) + params["bi"], approximate="tanh")
+    return matmul(h, params["wo"]) + params["bo"]

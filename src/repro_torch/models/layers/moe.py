@@ -19,6 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers.init import normal
 
 
@@ -77,8 +78,13 @@ def forward(params, x: torch.Tensor, cfg: MoEConfig):
     """x: [B, T, d] -> (y [B, T, d], aux_loss f32 scalar).
 
     aux_loss is the standard load-balancing loss (mean_prob * mean_assign
-    * E), which the JAX package's training step adds.
+    * E), which the JAX package's training step adds.  Under a mesh
+    every rank routes the whole batch over all the experts
+    (``sharding.replicated_call``): routing, capacity and drops are
+    those of the whole batch, as in the JAX package.
     """
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(forward, params, x, cfg)
     b, t, d = x.shape
     n = b * t
     e = cfg.n_experts

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers.init import normal
 
 
@@ -93,6 +94,9 @@ def forward(params, x: torch.Tensor, cfg: RWKV6Config,
     """x: [B, T, d] -> [B, T, d] (prefill), one token at a time.
 
     return_state=True additionally returns the decode cache."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(forward, params, x, cfg,
+                                        return_state=return_state)
     b, t, _ = x.shape
     h, n = cfg.n_heads, cfg.head_size
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :t]
@@ -119,6 +123,10 @@ def forward_chunked(params, x: torch.Tensor, cfg: RWKV6Config,
     matrix (the flash-linear-attention chunk form).  Every decay
     exponential is a difference L_a - L_b with a >= b along time, so
     exp() stays in (0, 1]."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(forward_chunked, params, x, cfg,
+                                        chunk=chunk,
+                                        return_state=return_state)
     b, t, d = x.shape
     h, n = cfg.n_heads, cfg.head_size
     if t % chunk:
@@ -176,6 +184,9 @@ def init_cache(batch: int, cfg: RWKV6Config, dtype=torch.bfloat16,
 def decode_step(params, x: torch.Tensor, cache: dict, cfg: RWKV6Config):
     """x: [B, 1, d] -> (y [B, 1, d], cache), the cache written in
     place."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(decode_step, params, x, cfg,
+                                        cache=cache)
     xt = x[:, 0]
     r, k, v, g, w = _projections(params, xt, cache["shift"].to(xt.dtype),
                                  cfg)

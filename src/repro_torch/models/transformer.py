@@ -35,11 +35,19 @@ super-block, which computes the same values.
 
 from __future__ import annotations
 
+import functools
+import types
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerKind, layer_kinds
+from repro_torch.distributed.sharding import (along_whole_dim, constrain,
+                                             current_mesh, gathered, lookup,
+                                             replicating, scoped,
+                                             summed_over_rows)
 from repro_torch.engine.engine import resolve_device
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import mamba as mamba_l
@@ -50,12 +58,44 @@ from repro_torch.models.layers import rwkv6 as rwkv_l
 from repro_torch.models.layers.init import normal
 
 
+def _under_mesh(fn):
+    """``fn`` under ``sharding.replicating()`` (see there); without a
+    mesh, ``fn`` itself."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if current_mesh() is None:
+            return fn(*args, **kwargs)
+        with replicating():
+            return fn(*args, **kwargs)
+    return run
+
+
 def _params(tensors: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 def _param(tensor: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(tensor)
+
+
+def _split_last(x) -> bool:
+    """Whether ``x`` is a DTensor whose last dim is split over more than
+    one rank."""
+    return isinstance(x, DTensor) and any(
+        p.is_shard(x.ndim - 1) and x.device_mesh.size(i) > 1
+        for i, p in enumerate(x.placements))
+
+
+def _gathered_block(block):
+    """Under a mesh, ``block``'s parts with every parameter gathered over
+    the data axes (``sharding.gathered``): what a layer computes with.
+    Without one, the block itself."""
+    if current_mesh() is None:
+        return block
+    view = types.SimpleNamespace(kind=block.kind)
+    for name, part in block.named_children():
+        setattr(view, name, {k: gathered(v) for k, v in part.items()})
+    return view
 
 
 class Block(nn.Module):
@@ -229,15 +269,15 @@ class Model(nn.Module):
         t = k.shape[2]
         if t <= alloc:
             pad = (0, 0, 0, alloc - t)
-            return {"k": nn.functional.pad(k, pad),
-                    "v": nn.functional.pad(v, pad)}
-        dest = (torch.arange(alloc, device=k.device) + (t - alloc)) % alloc
-        cache = {}
-        for name, full in (("k", k), ("v", v)):
-            ring = torch.empty_like(full[:, :, :alloc])
-            ring[:, :, dest] = full[:, :, -alloc:]
-            cache[name] = ring
-        return cache
+            return {name: along_whole_dim(
+                lambda x: nn.functional.pad(x, pad), full, 2)
+                for name, full in (("k", k), ("v", v))}
+        # position t - alloc + i goes to slot (t - alloc + i) % alloc: a
+        # roll of the last alloc tokens, on each rank's heads and rows
+        shift = (t - alloc) % alloc
+        return {name: along_whole_dim(
+            lambda x: torch.roll(x[:, :, -alloc:], shift, dims=2), full, 2)
+            for name, full in (("k", k), ("v", v))}
 
     def _apply_sublayer(self, block: Block, x, *, causal=True,
                         positions=None, enc_out=None, cache_max_len=None,
@@ -247,10 +287,12 @@ class Model(nn.Module):
         attention's (default the model's).  Returns (x, aux, cache), aux
         the MoE aux loss (None for a dense FFN)."""
         kind = block.kind
+        block = _gathered_block(block)
         backend = attn_backend or self.attn_backend
         collect = cache_max_len is not None
         cache: dict = {}
         h = self._norm_apply(block.ln1, x)
+        h = constrain(h, "batch", "mix_seq", "embed")
         if kind.mixer.startswith("attn"):
             acfg = self.attn_cfg(kind, causal)
             out = attn.forward(block.mixer, h, acfg, positions=positions,
@@ -281,7 +323,7 @@ class Model(nn.Module):
                 h, cache["rwkv"] = out
             else:
                 h = out
-        x = x + h
+        x = constrain(x + h, "batch", "res_seq", "embed")
         if kind.cross_attn and enc_out is not None:
             h = self._norm_apply(block.ln_cross, x)
             out = attn.forward(block.cross, h, self.attn_cfg(kind, False),
@@ -293,22 +335,38 @@ class Model(nn.Module):
             else:
                 h = out
             x = x + h
-        h, aux = self._ffn(block, self._norm_apply(block.ln2, x))
-        return x + h, aux, cache
+        h = constrain(self._norm_apply(block.ln2, x), "batch", "mix_seq",
+                      "embed")
+        h, aux = self._ffn(block, h)
+        return constrain(x + h, "batch", "res_seq", "embed"), aux, cache
 
     # --- embedding / heads -----------------------------------------------------
 
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the model's dtype.  Under a
+        mesh the tokens are placed as ("batch", "seq") first and the
+        lookup is an ``embedding`` (DTensor shards its table)."""
+        tokens = tokens.to(self.device, torch.int64)
+        if current_mesh() is None:
+            return self.embed[tokens].to(self.dtype)
+        tokens = constrain(tokens, "batch", "seq")
+        return lookup(self.embed, tokens).to(self.dtype)
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.to(self.device, torch.int64)].to(self.dtype)
+        x = self._lookup(tokens)
         if self.pos_emb == "learned":
             x = x + self.pos_embed[:x.shape[1]]
-        return x
+        return constrain(x, "batch", "res_seq", "embed")
 
     def _encode(self, frames: torch.Tensor, train: bool = False
                 ) -> torch.Tensor:
         """The encoder over stub front-end embeddings [B, F, d] (its MoE
         aux dropped, as the JAX package drops it)."""
-        x = frames.to(self.device, self.dtype) + self.enc_pos[None]
+        # placed before the first norm: the table is split on d, and
+        # DTensor's backward cannot turn a norm's partial sums over a
+        # split d into partial means
+        x = constrain(frames.to(self.device, self.dtype) + self.enc_pos[None],
+                      "batch", "res_seq", "embed")
         for block in self.encoder:
             x, _ = self._layer(block, x, train, causal=False)
         return self._norm_apply(self.enc_final_norm, x)
@@ -320,6 +378,7 @@ class Model(nn.Module):
         if not train:
             return self._apply_sublayer(block, x, **kw)[:2]
 
+        @scoped
         def run(x):
             return self._apply_sublayer(block, x, attn_backend="ref",
                                         **kw)[:2]
@@ -329,15 +388,20 @@ class Model(nn.Module):
         return run(x)
 
     def _head_matrix(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if self.cfg.tie_embeddings:
+            # the table is sharded (vocab -> data, d -> model) for the
+            # lookup; the head wants (d -> data, vocab -> model)
+            return gathered(constrain(self.embed.T, "p_in", "vocab"))
+        return gathered(self.lm_head)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """h: [B, T, d] -> logits f32[B, T, Vp] (small T only)."""
         logits = (h @ self._head_matrix()).float()
         vp, v = self.cfg.vocab_padded, self.cfg.vocab_size
         if vp != v:
-            logits[..., v:] = -1e30
-        return logits
+            logits = logits.masked_fill(
+                torch.arange(vp, device=logits.device) >= v, -1e30)
+        return constrain(logits, "batch", None, "vocab")
 
     def _inputs(self, tokens, frames=None, patches=None, train=False):
         """(decoder input x [B, P + T, d], the encoder's output or None):
@@ -358,10 +422,12 @@ class Model(nn.Module):
             x = torch.cat([torch.as_tensor(patches).to(self.device,
                                                         self.dtype), x],
                           dim=1)
+            x = constrain(x, "batch", "res_seq", "embed")
         return x, enc_out
 
     # --- training ----------------------------------------------------------------
 
+    @_under_mesh
     def forward_hidden(self, batch: dict):
         """The decoder stack -> (hidden states [B, T, d] after the final
         norm, MoE aux loss summed over the decoder layers, f32 0-d)."""
@@ -393,14 +459,38 @@ class Model(nn.Module):
                            device=h.device) if mask is None
                 else torch.as_tensor(mask).to(h.device, torch.float32))
         pad = torch.arange(vp, device=h.device) >= v
+        if current_mesh() is not None:
+            h = constrain(h, "batch", None, "embed")
+            labels = constrain(labels, "batch", None)
+            mask = constrain(mask, "batch", None)
+            pad = constrain(pad, "vocab")
 
+        ids = None
+        if current_mesh() is not None:
+            ids = constrain(torch.arange(vp, device=h.device), "vocab")
+
+        def sums(logits, y_c, m_c):
+            lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            gold = logits.gather(-1, y_c.unsqueeze(-1))
+            return torch.sum((lse - gold).squeeze(-1) * m_c), torch.sum(m_c)
+
+        @scoped
         def one(h_c, y_c, m_c):
-            logits = (h_c @ w).float()
+            logits = constrain((h_c @ w).float(), "batch", None, "vocab")
             if vp != v:
                 logits = logits.masked_fill(pad, -1e30)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, y_c[..., None])[..., 0]
-            return torch.sum((lse - gold) * m_c), torch.sum(m_c)
+            if not _split_last(logits):
+                # each rank's rows whole (under a mesh: sums partial over
+                # the batch's split)
+                return summed_over_rows(sums, logits, y_c, m_c)
+            # vocab-parallel: each rank's columns, the max and the sums
+            # reduced across; the gold logit picked by a mask
+            mx = logits.detach().amax(dim=-1, keepdim=True)
+            lse = torch.log(torch.exp(logits - mx).sum(
+                dim=-1, keepdim=True)) + mx
+            gold = (logits * (ids == y_c.unsqueeze(-1))).sum(
+                dim=-1, keepdim=True)
+            return torch.sum((lse - gold).squeeze(-1) * m_c), torch.sum(m_c)
 
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -410,8 +500,11 @@ class Model(nn.Module):
             s, n = (checkpoint(one, *args, use_reentrant=False)
                     if torch.is_grad_enabled() else one(*args))
             tot, cnt = tot + s, cnt + n
+        # under a mesh both are partial sums: reduce them before dividing
+        tot, cnt = constrain(tot), constrain(cnt)
         return tot / torch.clamp(cnt, min=1.0)
 
+    @_under_mesh
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy + 0.01 x the MoE aux loss.
         batch: ``tokens`` and ``labels`` int[B, T], optional ``loss_mask``
@@ -449,6 +542,7 @@ class Model(nn.Module):
 
     def _decode_sublayer(self, block: Block, x, cache: dict, cache_len):
         kind = block.kind
+        block = _gathered_block(block)
         h = self._norm_apply(block.ln1, x)
         if kind.mixer.startswith("attn"):
             h, _ = attn.decode_step(block.mixer, h, cache["kv"], cache_len,
@@ -475,22 +569,28 @@ class Model(nn.Module):
         return x + self._ffn(block, self._norm_apply(block.ln2, x))[0]
 
     @torch.no_grad()
+    @_under_mesh
     def decode_step(self, tokens, cache: dict, cache_len):
         """One serving step.  tokens: int[B, 1]; cache_len: int or int[B]
         (per-sequence lengths).  Returns (logits f32[B, Vp], cache), the
         cache written in place."""
-        x = self.embed[tokens.to(self.device, torch.int64)].to(self.dtype)
+        x = self._lookup(tokens)
         if self.pos_emb == "learned":
-            cl = torch.as_tensor(cache_len, device=self.device)
-            cl = cl.to(torch.int64).clamp(0, self.cfg.max_seq_len - 1)
-            pos = self.pos_embed[cl]
-            x = x + (pos[:, None, :] if cl.ndim == 1 else pos)
+            if isinstance(cache_len, int):
+                x = x + self.pos_embed[
+                    min(max(cache_len, 0), self.cfg.max_seq_len - 1)]
+            else:
+                cl = torch.as_tensor(cache_len, device=self.device)
+                cl = cl.to(torch.int64).clamp(0, self.cfg.max_seq_len - 1)
+                pos = self.pos_embed[cl]
+                x = x + (pos[:, None, :] if cl.ndim == 1 else pos)
         for block, layer_cache in zip(self.layers, cache["decoder"]):
             x = self._decode_sublayer(block, x, layer_cache, cache_len)
         x = self._norm_apply(self.final_norm, x)
         return self._logits(x)[:, 0], cache
 
     @torch.no_grad()
+    @_under_mesh
     def prefill(self, tokens, max_len: int, lengths=None, *, frames=None,
                 patches=None):
         """Process a prompt, build the decode cache.

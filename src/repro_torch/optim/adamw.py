@@ -30,8 +30,10 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.bitpack import as_i32, as_u32
+from repro_torch.distributed.sharding import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +62,12 @@ def stochastic_round_bf16(x: torch.Tensor, noise: torch.Tensor
 def _stochastic_round_bf16(x: torch.Tensor, gen: torch.Generator
                            ) -> torch.Tensor:
     """The JAX package's ``_stochastic_round_bf16``, its 16-bit noise
-    drawn from ``gen`` instead of a ``jax.random`` key."""
+    drawn from ``gen`` instead of a ``jax.random`` key.  A DTensor is
+    rounded on each rank's shard, with noise of the shard's shape."""
+    if is_dtensor(x):
+        return DTensor.from_local(
+            _stochastic_round_bf16(x.to_local(), gen), x.device_mesh,
+            x.placements, run_check=False)
     noise = torch.randint(0, 1 << 16, x.shape, generator=gen,
                           device=x.device, dtype=torch.int32)
     return stochastic_round_bf16(x, noise)
@@ -77,9 +84,10 @@ class AdamW:
     def init(self, params: dict) -> dict:
         dt = self.cfg.state_dtype
         dev = next(iter(params.values())).device if params else None
-        return {"m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+        # zeros_like: a DTensor parameter's states take its placements
+        return {"m": {k: torch.zeros_like(p, dtype=dt)
                       for k, p in params.items()},
-                "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                "v": {k: torch.zeros_like(p, dtype=dt)
                       for k, p in params.items()},
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -133,7 +141,8 @@ class AdamW:
             p = p.detach()
             g, m, v = grads[k], state["m"][k], state["v"][k]
             decay = p.ndim >= 2  # decay matrices only (standard)
-            if p.numel() >= self._SCAN_THRESHOLD and p.ndim >= 3:
+            if p.numel() >= self._SCAN_THRESHOLD and p.ndim >= 3 \
+                    and not is_dtensor(p):
                 pn, mn, vn = (torch.empty_like(p), torch.empty_like(m),
                               torch.empty_like(v))
                 for i in range(p.shape[0]):

@@ -19,7 +19,13 @@ The port of the JAX package's ``runtime/train_loop.py``, on the port's
   iteration (input stalls are a straggler cause too); a step slower than
   ``straggler_factor x`` EWMA is recorded and a callback fires.
 * **elastic restore** — ``TrainLoop.restore_onto`` restores the latest
-  checkpoint onto the devices of ``like_state``'s leaves (CPU <-> cuda).
+  checkpoint onto the devices of ``like_state``'s leaves (CPU <-> cuda),
+  or, given a placements tree, onto a (possibly different) mesh: every
+  leaf a DTensor placed as the tree says (the JAX package's sharding
+  tree).  A state of DTensors saves and restores in its own placements;
+  every rank runs the loop, and after a failure every rank restores the
+  step rank 0 wrote last (``CheckpointManager``'s sharded save and
+  restore meet on every rank).
 
 The step's loss is waited on with ``float()`` (a ``.item()``), so each
 step's time includes its device work.  ``rng_fn`` defaults to a
@@ -90,10 +96,12 @@ class TrainLoop:
 
     # --- elastic entry point ----------------------------------------------
 
-    def restore_onto(self, like_state):
+    def restore_onto(self, like_state, placements_tree=None, mesh=None):
         """Restore the latest checkpoint onto the devices of
-        ``like_state``'s leaves: ``(state, step)``."""
-        return self.ckpt.restore(None, like_state)
+        ``like_state``'s leaves, each leaf that ``placements_tree`` names
+        a DTensor on ``mesh`` (default the ``use_mesh`` context's) with
+        those placements: ``(state, step)``."""
+        return self.ckpt.restore(None, like_state, placements_tree, mesh)
 
     # --- main loop -----------------------------------------------------------
 
@@ -103,7 +111,7 @@ class TrainLoop:
         dev = _device_of(state)
         rng_fn = self.rng_fn or (lambda s: step_generator(s, dev))
         start = 0
-        if self.ckpt.latest_step() is not None:
+        if self.ckpt.latest_step(state) is not None:
             state, start = self.ckpt.restore(None, state)
             start += 1
         else:
@@ -143,7 +151,8 @@ class TrainLoop:
                 self.restarts += 1
                 if self.restarts > cfg.max_restarts:
                     raise
-                self.ckpt.wait()  # a save in flight completes first
+                # a save in flight lands first (on every rank, sharded)
+                self.ckpt.wait()
                 state, latest = self.ckpt.restore(None, state)
                 step = latest + 1
         self.ckpt.wait()

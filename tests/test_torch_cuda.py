@@ -1508,3 +1508,156 @@ def test_cuda_train_loop_restores_onto_either_device(cuda, tmp_path):
     (p, s), _ = loop.restore_onto(state)
     assert p["w"].device == state[0]["w"].device
     assert torch.equal(p["w"], state[0]["w"]) and int(s["step"]) == 7
+
+
+# --- the distribution side (chip_smoke.py phase 14 at small sizes) ----------
+
+def _one_rank_mesh(backend: str, device: str):
+    """A process group of one rank (``backend``) and its (1, 1) mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    kw = {"device_id": torch.device(device)} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, **kw)
+    return init_device_mesh(device.split(":")[0], (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
+def sharded_matches_unsharded(device: str, backend: str) -> dict:
+    """Reduced gemma3-1b in float32 on ``device``: a 40-token prefill, 4
+    decode steps and 2 training steps, sharded on a (1, 1) mesh of a
+    one-rank group and unsharded from the same weights.  Returns what to
+    hold (the flash launches of the sharded prefill among them)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.specs import place_params
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    cfg = reduced(get_config("gemma3-1b"))
+    dev = torch.device(device)
+    rules = shd.use_rules()
+    mesh = _one_rank_mesh(backend, device)
+    try:
+        def model():
+            return Model(cfg, torch.float32, attn_chunk=16, loss_chunk=16,
+                         device=dev, seed=0)
+
+        plain, sharded = model(), model()
+        prompt = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (1, 40))).to(dev)
+        want = []
+        logits, cache, n = plain.prefill(prompt, 64)
+        toks = []
+        for i in range(4):
+            want.append(logits)
+            toks.append(logits.argmax(-1, keepdim=True))
+            logits, cache = plain.decode_step(toks[-1], cache, n + i)
+        want.append(logits)
+        out = {}
+        with shd.use_mesh(mesh, rules):
+            params = place_params(sharded, mesh, rules)
+            ops.reset_launch_counts()
+            logits, cache, _ = make_prefill_step(sharded, 64)(
+                params, {"tokens": prompt})
+            out["flash"] = ops.launch_counts()["flash_attention"]
+            step = make_serve_step(sharded)
+            got = [logits.full_tensor()]
+            for i in range(4):
+                logits, cache = step(params, toks[i], cache, n + i)
+                got.append(logits.full_tensor())
+        out["equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        rng = np.random.default_rng(6)
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 32))).to(dev) for k in ("tokens",
+                                                          "labels")}
+        finals = []
+        for placed in (False, True):
+            m = model()
+            opt = AdamW(AdamWConfig(lr=1e-3))
+            ctx = (shd.use_mesh(mesh, rules) if placed
+                   else contextlib.nullcontext())
+            with ctx:
+                p = (place_params(m, mesh, rules) if placed
+                     else dict(m.named_parameters()))
+                state = (p, opt.init(p))
+                for _ in range(2):
+                    state = make_train_step(m, opt)(*state, batch)[:2]
+            finals.append({k: (v.full_tensor() if placed else v).detach()
+                           for k, v in state[0].items()})
+        out["train_equal"] = all(torch.equal(finals[0][k], finals[1][k])
+                                 for k in finals[0])
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_lm_equals_the_unsharded_port(cuda):
+    from repro_torch.configs import get_config, reduced
+
+    out = sharded_matches_unsharded("cuda:0", "nccl")
+    assert out["flash"] == reduced(get_config("gemma3-1b")).n_layers
+    assert out["equal"] and out["train_equal"]
+
+
+def pipeline_matches_sequential(device: str) -> tuple[bool, int]:
+    """Reduced gemma3-1b's layers as 2 stages on ``device`` twice, 4
+    microbatches of a prefill forward: (torch.equal to the layers in
+    sequence, flash launches)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.pipeline import pipelined_apply
+    from repro_torch.models.transformer import Model
+
+    cfg = reduced(get_config("gemma3-1b"))
+    dev = torch.device(device)
+    model = Model(cfg, torch.float32, attn_chunk=16, device=dev, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (8, 32))).to(dev)
+    pos = torch.arange(32, device=dev)
+    half = cfg.n_layers // 2
+
+    def stage_fn(layers, h):
+        for block in layers:
+            h = model._apply_sublayer(block, h, positions=pos)[0]
+        return h
+
+    with torch.no_grad():
+        micro = model._embed(tokens).reshape(4, 2, 32, cfg.d_model)
+        want = torch.stack([stage_fn(model.layers, m) for m in micro])
+        ops.reset_launch_counts()
+        got = pipelined_apply([device] * 2, stage_fn,
+                              [model.layers[:half], model.layers[half:]],
+                              micro)
+    return torch.equal(got, want), ops.launch_counts()["flash_attention"]
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_equals_sequential_application(cuda):
+    from repro_torch.configs import get_config, reduced
+
+    equal, flash = pipeline_matches_sequential("cuda:0")
+    assert equal and flash == 4 * reduced(get_config("gemma3-1b")).n_layers
+
+
+@pytest.mark.gpu
+def test_cuda_snn_dryrun_shards_equal_their_plain_versions(cuda):
+    from repro_torch.launch import dryrun_snn
+
+    run = dryrun_snn.run_shard(False, "cuda", neurons=256, batch=256)
+    assert run["infer"]["equal"] and run["train"]["equal"]
+    assert run["infer"]["launches"] == {"infer_window_batch": 1}
+    assert sum(run["train"]["launches"].values()) == dryrun_snn.STREAM
+    assert run["infer"]["bound_ms"] > 0 and run["infer"]["ms"] > 0

@@ -39,7 +39,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 
 def test_importing_the_serving_stack_loads_no_jax():
-    """The serving and training stacks' modules load no JAX module."""
+    """The serving, training and distribution stacks' modules and the
+    dry-run launchers load no JAX module."""
     code = ("import sys, repro_torch.serving.snn, repro_torch.launch.serve,"
             " repro_torch.convert, repro_torch.launch.mnist_stdp,"
             " repro_torch.launch.quickstart, repro_torch.core.network,"
@@ -57,7 +58,12 @@ def test_importing_the_serving_stack_loads_no_jax():
             " repro_torch.optim, repro_torch.optim.compression,"
             " repro_torch.runtime, repro_torch.data.synthetic,"
             " repro_torch.data.loader, repro_torch.launch.train,"
-            " repro_torch.launch.train_lm; "
+            " repro_torch.launch.train_lm, repro_torch.distributed.sharding,"
+            " repro_torch.distributed.specs, repro_torch.distributed.pipeline,"
+            " repro_torch.launch.mesh, repro_torch.launch.inputs,"
+            " repro_torch.launch.roofline, repro_torch.launch.op_cost,"
+            " repro_torch.launch.dryrun, repro_torch.launch.dryrun_snn,"
+            " repro_torch.launch.debug_colls; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -255,8 +255,15 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    tokens must be equal), then 4 ``make_train_step`` steps at phase 13's
    shape under deterministic algorithms, params and AdamW states
    bit-equal to the unsharded steps, the sharded run's peak memory
-   printed beside the dry run's for the same config; a line says that a
-   multi-rank run needs the four-card machine; (b) ``pipelined_apply``
+   printed beside the dry run's for the same config; then mixtral-8x22b
+   (1 layer: attention + MoE) and jamba-1.5-large (2 layers: Mamba +
+   MLP, attention + MoE) at full width in bf16, their experts' ``d_ff``
+   and Mamba channels on the model axis (``sharding.TensorParallel``),
+   each served (a 256-token prefill of 2 sequences and 4 decode steps:
+   logits and every cache leaf ``torch.equal``, one flash launch a
+   prefill) and trained one step (mixtral's layer, jamba's first; loss
+   and params ``torch.equal``) against the unsharded port; a line says
+   that a multi-rank run needs the four-card machine; (b) ``pipelined_apply``
    over ``["cuda:0", "cuda:0"]``: gemma3-1b's 26 layers as 2 stages of
    13, 4 microbatches of a B 8, T 512 bf16 prefill forward (104 flash
    launches), ``torch.equal`` to the layers applied in sequence, wall
@@ -4113,6 +4120,159 @@ def dist_sharded_training(mesh, dry11: dict, card: str) -> None:
              "unsharded ones (or launched flash)")
 
 
+# (a), the tensor-parallel families at full width in bf16, depth cut so
+# that a run and its results fit one card: mixtral-8x22b 1 layer
+# (attention + MoE); jamba-1.5-large served at 2 layers (Mamba + MLP, then
+# attention + MoE: attention every 2nd layer) and trained at its first
+# (Mamba + MLP: a MoE layer's 19.3 GB of experts with float32 AdamW states
+# does not fit); batch, prompt, decode steps, cache, training sequence
+DIST_TP_FAMILIES = (
+    ("mixtral-8x22b", {"n_layers": 1}, {"n_layers": 1}),
+    ("jamba-1.5-large-398b", {"n_layers": 2, "attn_period": 2},
+     {"n_layers": 1}))
+DIST_TP_BATCH, DIST_TP_PROMPT, DIST_TP_DECODE = 2, 256, 4
+DIST_TP_MAX_LEN, DIST_TP_TRAIN_SEQ = 512, 256
+
+
+def dist_tp_families(mesh, card: str) -> int:
+    """Phase 14 (a), the families whose MoE experts, Mamba channels and
+    RWKV6 heads split over ``model`` (``sharding.TensorParallel``), on
+    the one-rank mesh against the unsharded port from the same weights:
+    each config of ``DIST_TP_FAMILIES`` served (a prefill through
+    ``make_prefill_step``, ``DIST_TP_DECODE`` decode steps through
+    ``make_serve_step``: logits and every cache leaf ``torch.equal``) and
+    trained one ``make_train_step`` step under deterministic algorithms
+    (loss and new params ``torch.equal``).  Returns the sharded
+    prefills' flash launches."""
+    import warnings
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.specs import map_tree, place_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.launch.train import bind_params, make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    dev = torch.device("cuda")
+    rules = shd.use_rules()
+    rng = np.random.default_rng(47)
+    flash = 0
+
+    def leaves(tree) -> list:
+        out = []
+        map_tree(out.append, tree)
+        return out
+
+    for arch, serve_cut, train_cut in DIST_TP_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **serve_cut)
+        model = Model(cfg, torch.bfloat16, device=dev, seed=0)
+        plain = dict(model.named_parameters())
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (DIST_TP_BATCH, DIST_TP_PROMPT))).to(dev)
+        feed = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (DIST_TP_DECODE, DIST_TP_BATCH, 1))).to(dev)
+
+        def serve(params):
+            logits, cache, n = make_prefill_step(model, DIST_TP_MAX_LEN)(
+                params, {"tokens": tok})
+            out = [full_of(logits)]
+            first = map_tree(lambda t: full_of(t).clone(), cache)
+            step = make_serve_step(model)
+            for i in range(DIST_TP_DECODE):
+                logits, cache = step(params, feed[i], cache, n + i)
+                out.append(full_of(logits))
+            return out, leaves(first) + leaves(map_tree(full_of, cache))
+
+        want, c_want = serve(plain)
+        with shd.use_mesh(mesh, rules):
+            params = place_params(model, mesh, rules)
+            ops.reset_launch_counts()
+            got, c_got = serve(params)
+            launches = ops.launch_counts()["flash_attention"]
+        bind_params(model, plain)
+        logits_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        caches_equal = all(torch.equal(a, b) for a, b in zip(c_got, c_want))
+        gap = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        n_attn = flash_layers(model)
+        mix = dict(collections.Counter(f"{k.mixer}/{k.ffn}"
+                                       for k in model.kinds))
+        del model, plain, params, got, want, c_got, c_want
+        torch.cuda.empty_cache()
+        print(f"dist (a): {arch} at full width in bf16 (d_model "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_experts} experts), "
+              f"its experts' d_ff and Mamba channels on the model axis "
+              f"(sharding.TensorParallel), on the (data 1, model 1) mesh "
+              f"against the unsharded port, served at {cfg.n_layers} "
+              f"layers ({mix}; B {DIST_TP_BATCH}, a {DIST_TP_PROMPT}-token "
+              f"prefill and {DIST_TP_DECODE} decode steps): logits "
+              f"torch.equal {logits_equal} (largest gap {gap}), every cache "
+              f"leaf torch.equal {caches_equal}, flash launches {launches} "
+              f"({n_attn} attention layers), {time.perf_counter() - t0} s; "
+              f"{card}", flush=True)
+
+        t0 = time.perf_counter()
+        cfg_t = dataclasses.replace(get_config(arch), **train_cut)
+        model = Model(cfg_t, torch.bfloat16, loss_chunk=DIST_TP_TRAIN_SEQ,
+                      device=dev, seed=0)
+        tt = torch.from_numpy(rng.integers(
+            0, cfg_t.vocab_size, (DIST_TP_BATCH, DIST_TP_TRAIN_SEQ))).to(dev)
+        batch = {"tokens": tt, "labels": torch.roll(tt, -1, 1)}
+        # bf16 AdamW states, as the dry run trains these configs: float32
+        # ones for mixtral's 4.8 GB of experts, old and new at once, and
+        # a second run's do not fit beside the first's params
+        opt = AdamW(AdamWConfig(lr=1e-3, state_dtype=torch.bfloat16))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                plain = dict(model.named_parameters())
+                out = make_train_step(model, opt)(plain, opt.init(plain),
+                                                  batch)
+                p_want, m_want = out[0], out[2]
+                del out
+                bind_params(model, plain)
+                with shd.use_mesh(mesh, rules):
+                    params = place_params(model, mesh, rules)
+                    out = make_train_step(model, opt)(
+                        params, opt.init(params), batch)
+                    p_got, m_got = out[0], out[2]
+                    del out
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w.message).split(".")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        with torch.no_grad():
+            train_equal = (
+                torch.equal(full_of(m_got["loss"]), m_want["loss"])
+                and all(torch.equal(full_of(p_got[k]), p_want[k])
+                        for k in p_want))
+            worst = max(float((full_of(p_got[k]).float()
+                               - p_want[k].float()).abs().max())
+                        for k in p_want)
+        tmix = dict(collections.Counter(f"{k.mixer}/{k.ffn}"
+                                        for k in model.kinds))
+        print(f"dist (a): {arch} trained one step at {cfg_t.n_layers} "
+              f"layer(s) ({tmix}), "
+              f"B {DIST_TP_BATCH}, T {DIST_TP_TRAIN_SEQ}, bf16 AdamW states, "
+              f"deterministic algorithms, on the mesh against unsharded: "
+              f"loss {float(m_got['loss'])}, loss and params torch.equal "
+              f"{train_equal} (largest param gap {worst}), ops without a "
+              f"deterministic version {nondet}, {time.perf_counter() - t0} "
+              f"s; {card}", flush=True)
+        del model, plain, params, p_want, p_got
+        torch.cuda.empty_cache()
+        if not (logits_equal and caches_equal and train_equal) \
+                or launches != n_attn:
+            fail(f"the sharded {arch} is not bit-equal to the unsharded "
+                 f"port on one rank, or launched flash {launches} times")
+        flash += launches
+    return flash
+
+
 def dist_pipeline(card: str) -> int:
     """Phase 14 (b): gemma3-1b's 26 layers as 2 stages of 13 on
     ``cuda:0`` twice, 4 microbatches of a B 8, T 512 bf16 prefill forward
@@ -4226,6 +4386,8 @@ def phase_distributed(card: str) -> dict:
         flash = dist_sharded_serving(mesh, card)
         torch.cuda.empty_cache()
         dist_sharded_training(mesh, dry11, card)
+        torch.cuda.empty_cache()
+        flash += dist_tp_families(mesh, card)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

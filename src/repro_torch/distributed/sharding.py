@@ -29,9 +29,10 @@ and the residual stream go through DTensor's own rules; the ops whose
 rules differ between torch versions run on each rank's local tensors
 with their placements (and their gradients' placements) set here by
 hand: :func:`matmul`, :func:`lookup`, :func:`summed_over_rows`,
-:func:`along_whole_dim`, and :func:`replicated_call` for the layers
-that run on full copies (MoE, Mamba, RWKV6).  :func:`gathered` is the
-FSDP gather of a parameter at its use.
+:func:`along_whole_dim`, and :class:`TensorParallel` for the layers
+that split their channels over ``model`` (MoE experts' ``d_ff``, Mamba
+channels, RWKV6 heads).  :func:`gathered` is the FSDP gather of a
+parameter at its use.
 
 A mesh here is a ``DeviceMesh`` (axis names ``mesh_dim_names``), an
 ``SNNMesh``, or anything with a ``shape`` mapping axis name to size (as
@@ -45,6 +46,7 @@ import threading
 from contextlib import contextmanager
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -357,55 +359,238 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(x_l @ w_l, mesh, outs, run_check=False)
 
 
-def replicated_call(fn, params: dict, x: torch.Tensor, *args, cache=None,
-                    **kwargs):
-    """``fn(params, x, *args[, cache], **kwargs)`` of a layer, for a
-    DTensor ``x``: every rank runs the plain layer on full copies of its
-    params, of ``x`` and of ``cache`` (gathered), so the layer's results
-    are its unsharded ones whatever the placement; tensor results come
-    back replicated, and a ``cache`` the layer wrote in place is written
-    back into each rank's shard of it.  (MoE routing, the Mamba scan and
-    RWKV6's recurrence run so: their own data-dependent or sequential
-    steps have no DTensor rule.)  A plain ``x``: the plain call."""
+class TensorParallel:
+    """One rank's part of a layer that splits its channels over the mesh
+    axis of ``p_out`` (``model``): MoE experts' ``d_ff``, Mamba's
+    channels, RWKV6's heads, as the JAX package places their weights.
 
-    if not isinstance(x, DTensor):
-        return (fn(params, x, *args, **kwargs) if cache is None
-                else fn(params, x, cache, *args, **kwargs))
-    mesh = x.device_mesh
-    rep = [Replicate()] * mesh.ndim
+    Built from the layer's input ``x``.  Inside, the layer computes on
+    plain local tensors: its rows of ``x`` (the batch's split kept,
+    whole over ``model``: gathered there where a sequence-parallel rule
+    splits the sequence), each weight's block on this rank's ``model``
+    index (gathered over the other axes at use, as FSDP gathers), and
+    the few collectives of tensor parallelism, all over ``model``:
 
-    def full(t):
-        return as_dtensor(t, mesh).redistribute(mesh, rep).to_local()
+    * :meth:`copy`: the identity, its gradient summed (a whole tensor
+      that column-split products read);
+    * :meth:`reduce`: a row-split product's partial sums summed, for a
+      column-split product to read;
+    * :meth:`regroup_halves`: the all-to-all that turns this rank's
+      contiguous block of ``[a | b]`` into its blocks of ``a`` and ``b``;
+    * :meth:`gather_rows`: a small tensor (MoE routing) of every rank's
+      rows, and :meth:`sum_rows`, a sum over them.
 
-    def wrap(t):
-        if isinstance(t, torch.Tensor):
-            return DTensor.from_local(t, mesh, rep, run_check=False)
-        if isinstance(t, dict):
-            return {k: wrap(v) for k, v in t.items()}
-        if isinstance(t, tuple):
-            return tuple(wrap(v) for v in t)
-        return t
+    Every local gradient is the whole gradient of its tensor (the sums
+    are made by ``copy`` and ``reduce``, or declared partial on the
+    weights), so the weights' gradients come back placed as the weights.
+    :meth:`out` returns the layer's result as a DTensor, partial over
+    ``model`` as :func:`matmul`'s row-split product is; caches stay in
+    each rank's shard (:meth:`cache`, :meth:`cache_local`), never
+    gathered.  With a plain ``x`` (no mesh) every method is the
+    identity, and on a mesh whose dims have one rank each the layer runs
+    the unsharded ops on the same tensors.
+    """
 
-    p_full = {k: full(v) for k, v in params.items()}
-    if cache is None:
-        return wrap(fn(p_full, full(x), *args, **kwargs))
-    c_full = {k: full(v) for k, v in cache.items()}
-    y, _ = fn(p_full, full(x), c_full, *args, **kwargs)
-    for k, t in cache.items():
-        _write_shard(t, c_full[k])
-    return wrap(y), cache
+    def __init__(self, x: torch.Tensor):
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        self.n, self.rank, self.tp, self.rows = 1, 0, None, []
+        if self.mesh is None:
+            return
+        mesh = self.mesh
+        ctx = current_mesh()
+        rules = ctx[1] if ctx is not None else DEFAULT_RULES
+        names = list(axis_sizes(mesh))
+        axes = spec_axes(_resolve(rules, mesh, ("p_out",))[0])
+        if len(axes) > 1:
+            raise ValueError(f"p_out over {axes}: one tensor-parallel axis")
+        if axes:
+            self.tp = names.index(axes[0])
+            self.n = mesh.size(self.tp)
+            self.rank = mesh.get_coordinate()[self.tp]
+            self.group = mesh.get_group(self.tp)
+        self.pl = [Replicate() if i == self.tp else p
+                   for i, p in enumerate(x.placements)]
+        if any(p.is_partial() or (p.is_shard() and p.dim != 0)
+               for p in self.pl):
+            raise ValueError(f"x placed {x.placements}: a tensor-parallel "
+                             f"layer takes its rows split on dim 0 only")
+        self.rows = [i for i, p in enumerate(self.pl) if p.is_shard()]
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``x``, whole over ``model``."""
+        if self.mesh is None:
+            return x
+        return x.redistribute(self.mesh, self.pl).to_local()
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's ``model`` block of a whole ``t`` along ``dim``."""
+        size = t.shape[dim] // self.n
+        return t.narrow(dim, self.rank * size, size) if self.n > 1 else t
+
+    def weight(self, w: torch.Tensor, dim: int | None = None, *,
+               partial: bool = False) -> torch.Tensor:
+        """The parameter ``w`` as this rank computes with it: its block
+        along ``dim`` on this rank's ``model`` index (raises where the
+        parameter is not split so), whole (``dim`` None) otherwise;
+        gathered over every other mesh axis.  Its gradient is partial
+        over the axes that split the rows, and over ``model`` too where
+        ``partial`` (a whole weight that the rank uses for its own
+        channels only)."""
+        if not isinstance(w, DTensor):
+            return w if dim is None else self.block(w, dim)
+        mesh = w.device_mesh
+        pl = [Replicate()] * mesh.ndim
+        grad = [Partial() if i in self.rows else Replicate()
+                for i in range(mesh.ndim)]
+        if self.tp is not None and self.n > 1:
+            if dim is not None:
+                if w.placements[self.tp] != Shard(dim):
+                    raise ValueError(
+                        f"a {tuple(w.shape)} weight placed {w.placements} "
+                        f"is not split on dim {dim} over model: the layer "
+                        f"runs tensor-parallel where model divides it")
+                pl[self.tp] = grad[self.tp] = Shard(dim)
+            elif partial:
+                grad[self.tp] = Partial()
+        return w.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (whole on every rank), its gradient summed over
+        ``model``: the input of products split on their output dim."""
+        if self.n == 1:
+            return t
+        return _Sum.apply(t, [self.group], False, True)
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Partial sums over ``model`` summed, and so is their gradient:
+        the sum feeds this rank's channels only (Mamba's ``x_proj``)."""
+        if self.n == 1:
+            return t
+        return _Sum.apply(t, [self.group], True, True)
+
+    def regroup_halves(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [..., 2c]: this rank's contiguous block of a last dim
+        ``[a | b]`` of two halves split over ``model`` -> ``[a_j | b_j]``,
+        its blocks of each half (an all-to-all over ``model``, the
+        reverse in the backward)."""
+        if self.n == 1:
+            return t
+        j, n = self.rank, self.n
+        rows = t.unflatten(-1, (2, t.shape[-1] // 2)).movedim(-2, 0)
+        # sub-block s of the 2n goes to rank s % n; rank j holds 2j, 2j+1
+        out = _Exchange.apply(rows, self.group, n,
+                              ((2 * j) % n, (2 * j + 1) % n),
+                              (j // 2, (n + j) // 2))
+        return out.movedim(0, -2).flatten(-2)
+
+    def gather_rows(self, t: torch.Tensor) -> tuple:
+        """(``t`` [rows, ...] of every rank that splits the rows, in
+        order; the index of this rank's first row).  No gradient: for
+        routing decisions."""
+        if not self.rows:
+            return t, 0
+        full = DTensor.from_local(t.detach(), self.mesh, self.pl,
+                                  run_check=False).full_tensor()
+        return full, local_block(tuple(full.shape), self.mesh, self.pl)[1][0]
+
+    def sum_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks that split the rows (a sum over
+        the rows of each); its gradient as it is."""
+        if not self.rows:
+            return t
+        return _Sum.apply(t, [self.mesh.get_group(i) for i in self.rows],
+                          True, False)
+
+    def out(self, y: torch.Tensor):
+        """The layer's local result ``y`` [rows, ...], a row-split
+        product's sums, as a DTensor partial over ``model``, its rows
+        placed as the input's."""
+        if self.mesh is None:
+            return y
+        pl = [Partial() if i == self.tp and self.n > 1 else p
+              for i, p in enumerate(self.pl)]
+        return DTensor.from_local(y, self.mesh, pl, run_check=False)
+
+    def replicated(self, t: torch.Tensor):
+        """``t``, the same on every rank, as a replicated DTensor."""
+        return t if self.mesh is None else as_dtensor(t, self.mesh)
+
+    def cache(self, t: torch.Tensor, dim: int | None):
+        """A cache's local block (this rank's rows, its ``model`` block
+        along ``dim``; ``dim`` None: whole) as a DTensor placed as
+        :func:`place_cache` places it."""
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self._cache_pl(dim),
+                                  run_check=False)
+
+    def cache_local(self, c: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """The local block of a cache placed as :meth:`cache` places it
+        (raises otherwise: a cache is never gathered), to write in
+        place."""
+        if self.mesh is None:
+            return c
+        want = self._cache_pl(dim)
+        if not isinstance(c, DTensor) or list(c.placements) != want:
+            raise ValueError(f"a cache placed {getattr(c, 'placements', None)}"
+                             f", not {want}: its rows as the input's, split "
+                             f"on dim {dim} over model")
+        return c.to_local()
+
+    def _cache_pl(self, dim):
+        return [Shard(dim) if i == self.tp and dim is not None and self.n > 1
+                else p for i, p in enumerate(self.pl)]
 
 
-def _write_shard(t: torch.Tensor, whole: torch.Tensor) -> None:
-    """Copy this rank's block of ``whole`` (the full value) into the
-    DTensor ``t``'s local shard (no-op where ``whole`` is that shard)."""
-    local = t.to_local()
-    if local.data_ptr() == whole.data_ptr():
-        return
-    shape, off = local_block(tuple(t.shape), t.device_mesh, t.placements)
-    for d, (n, o) in enumerate(zip(shape, off)):
-        whole = whole.narrow(d, o, n)
-    local.copy_(whole)
+class _Sum(torch.autograd.Function):
+    """A sum over the ranks of ``groups`` in the forward (``fwd``) and in
+    the backward (``bwd``); the identity where off."""
+
+    @staticmethod
+    def forward(ctx, t, groups, fwd, bwd):
+        ctx.groups, ctx.bwd = groups, bwd
+        return _all_reduce(t, groups) if fwd else t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.groups) if ctx.bwd else g,
+                None, None, None)
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t.contiguous(), "sum", g))
+    return t
+
+
+class _Exchange(torch.autograd.Function):
+    """The rows of ``t`` [2, ...]: row q to rank ``send[q]``, row q of
+    the result from rank ``recv[q]`` (an all-to-all; the reverse in the
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, send, recv):
+        ctx.args = (group, n, recv, send)
+        return _all_to_all(t, group, n, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def _all_to_all(t, group, n: int, send: tuple, recv: tuple):
+    # all_to_all_single takes its input by destination rank and gives its
+    # output by source rank
+    by_dest = sorted(range(2), key=lambda q: send[q])
+    if by_dest != [0, 1]:
+        t = t[by_dest]
+    out = funcol.wait_tensor(funcol.all_to_all_single(
+        t.contiguous(), [recv.count(r) for r in range(n)],
+        [send.count(r) for r in range(n)], group))
+    src = sorted(recv)
+    if src != list(recv):
+        out = out[[src.index(r) for r in recv]]
+    return out
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -21,11 +21,9 @@ The port of the JAX package's ``launch/dryrun.py``.  For each cell:
 Where the JAX package lowers and compiles an XLA program, the port runs
 its eager program on stand-ins: its counts are those of the code the
 card would run (unfused; attention through ``chunked_attention``, the
-flash kernel being a card-only launch; MoE layers computed on a full
-copy of the tokens and experts on every rank, see
-``models/layers/moe.py``).  A cell's ``replicated_layers`` names the
-parts that run so (MoE FFNs, Mamba and RWKV6 mixers): its bytes and
-FLOPs are a full copy's on every rank there, not a sharded plan's.
+flash kernel being a card-only launch; MoE experts, Mamba channels and
+RWKV6 heads on each rank's ``model`` slice, as the JAX package places
+them: ``sharding.TensorParallel``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -171,18 +169,6 @@ def trace_cell(arch: str, shape: ShapeSpec, mesh, *,
     return cost, model, rules, accum, arg_bytes, time.perf_counter() - t0
 
 
-def replicated_layers(model) -> list[str]:
-    """The parts of ``model`` that run on full copies under a mesh
-    (``sharding.replicated_call``), by parameter prefix."""
-    out = []
-    for i, block in enumerate(model.layers):
-        if block.kind.mixer in ("mamba", "rwkv"):
-            out.append(f"layers.{i}.mixer")
-        if block.kind.ffn == "moe":
-            out.append(f"layers.{i}.ffn")
-    return out
-
-
 def cell_result(arch: str, shape: ShapeSpec, mesh, mesh_label: str, *,
                 variant: str | None = None, cfg=None) -> dict:
     """The cell's result on ``mesh`` (a mesh of a running process group;
@@ -211,7 +197,6 @@ def cell_result(arch: str, shape: ShapeSpec, mesh, mesh_label: str, *,
         "model_flops_per_chip": mf / chips,
         "useful_flops_frac": (mf / chips) / max(rl.flops, 1.0),
         "collectives": len(cost.records),
-        "replicated_layers": replicated_layers(model),
     }
 
 
@@ -231,14 +216,6 @@ def lower_cell(arch: str, shape: ShapeSpec, multi_pod: bool = False, *,
         return cell_result(arch, shape,
                            make_production_mesh(multi_pod=multi_pod),
                            mesh_name(multi_pod), variant=variant, cfg=cfg)
-
-
-def replicated_note(res: dict) -> str:
-    """A printed cell's warning that some of its layers ran on full
-    copies (empty where none did)."""
-    n = len(res.get("replicated_layers", ()))
-    return (f" replicated_layers={n} (full copies on every rank)" if n
-            else "")
 
 
 def load_results(path: Path) -> dict:
@@ -313,8 +290,7 @@ def main(argv=None) -> None:
                   f"peak={res['peak_bytes_per_device']/1e9:.2f}GB "
                   f"est_peak={res['est_peak_bytes']/1e9:.2f}GB "
                   f"fits_80GB={res['fits_80GB']} "
-                  f"dominant={res['roofline']['dominant']}"
-                  f"{replicated_note(res)}", flush=True)
+                  f"dominant={res['roofline']['dominant']}", flush=True)
         except Exception as e:  # noqa: BLE001 - a cell's failure is recorded
             res = {"arch": arch, "shape": s.name, "mesh": mesh_name(mp),
                    "status": "error", "error": str(e)[:2000],

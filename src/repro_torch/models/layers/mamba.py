@@ -55,10 +55,32 @@ def init(gen: torch.Generator | None, cfg: MambaConfig, dtype=torch.bfloat16,
             "out_proj": normal(gen, (di, d), di ** -0.5, dtype, device)}
 
 
-def _ssm_params(params, xc: torch.Tensor, cfg: MambaConfig):
-    """xc: [..., T, di] conv output -> (dt, B, C) data-dependent, f32."""
+# the dim each weight splits over ``model`` (its ``p_out``: the channels)
+_TP_DIM = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+           "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _local(tp, params) -> dict:
+    """Each weight's block on this rank's channels (see
+    ``sharding.TensorParallel``)."""
+    return {k: tp.weight(v, _TP_DIM[k]) for k, v in params.items()}
+
+
+def _in_proj(tp, params, x):
+    """x: [B, T, d] -> (x, z) [B, T, di] each, this rank's channels of
+    both: ``in_proj``'s split is a contiguous block of ``[x | z]``, so
+    its product is regrouped over ``model``."""
+    xz = tp.regroup_halves(tp.copy(x) @ params["in_proj"])
+    return xz.chunk(2, dim=-1)
+
+
+def _ssm_params(tp, params, xc: torch.Tensor, cfg: MambaConfig):
+    """xc: [..., T, di] conv output -> (dt, B, C) data-dependent, f32.
+    ``x_proj`` contracts the channels: its sums are reduced over
+    ``model``."""
     r, ds = cfg.rank, cfg.d_state
-    dt_r, bm, cm = (xc @ params["x_proj"]).split([r, ds, ds], dim=-1)
+    proj = tp.reduce(xc @ params["x_proj"])
+    dt_r, bm, cm = proj.split([r, ds, ds], dim=-1)
     dt = F.softplus((dt_r @ params["dt_proj"]).float() + params["dt_bias"])
     return dt, bm.float(), cm.float()
 
@@ -86,35 +108,37 @@ def forward(params, x: torch.Tensor, cfg: MambaConfig,
 
     return_state=True additionally returns the decode cache (the last
     ``d_conv - 1`` conv inputs, zeros before the first, and the final ssm
-    state)."""
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(forward, params, x, cfg,
-                                        return_state=return_state)
+    state).  Under a mesh every rank runs its ``model`` slice of the
+    channels (``sharding.TensorParallel``); its caches are its shards."""
+    tp = sharding.TensorParallel(x)
+    p = _local(tp, params)
+    x = tp.local(x)
     t = x.shape[1]
     dc = cfg.d_conv
-    xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)    # [B, T, di] each
+    xi, z = _in_proj(tp, p, x)                          # [B, T, di] each
 
     # causal depthwise conv (kernel dc), summed in the JAX package's order
     xpad = F.pad(xi, (0, 0, dc - 1, 0))
     xc = 0
     for i in range(dc):
-        xc = xc + xpad[:, i:i + t, :] * params["conv_w"][i]
-    xc = F.silu(xc + params["conv_b"])
+        xc = xc + xpad[:, i:i + t, :] * p["conv_w"][i]
+    xc = F.silu(xc + p["conv_b"])
 
-    dt, bm, cm = _ssm_params(params, xc, cfg)
-    a_mat = -torch.exp(params["A_log"])                 # [di, ds]
+    dt, bm, cm = _ssm_params(tp, p, xc, cfg)
+    a_mat = -torch.exp(p["A_log"])                      # [di, ds]
     # discretize: a_t = exp(dt * A), b_t = dt * B_t * x_t
     a = torch.exp(dt[..., None] * a_mat)                # [B, T, di, ds]
     bx = (dt * xc.float())[..., None] * bm[..., None, :]
     s = scan(a, bx)                                     # [B, T, di, ds]
 
     y = torch.einsum("btds,bts->btd", s, cm)            # [B, T, di]
-    y = y + params["D"] * xc.float()
+    y = y + p["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"]
+    out = tp.out(y @ p["out_proj"])
     if return_state:
-        return out, {"conv": xpad[:, t:].to(x.dtype).contiguous(),
-                     "ssm": s[:, -1].contiguous()}
+        return out, {"conv": tp.cache(xpad[:, t:].to(x.dtype).contiguous(),
+                                      2),
+                     "ssm": tp.cache(s[:, -1].contiguous(), 1)}
     return out
 
 
@@ -128,23 +152,28 @@ def init_cache(batch: int, cfg: MambaConfig, dtype=torch.bfloat16,
 
 def decode_step(params, x: torch.Tensor, cache: dict, cfg: MambaConfig):
     """x: [B, 1, d] -> (y [B, 1, d], cache), the cache written in
-    place (under a mesh: ``sharding.replicated_call``)."""
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(decode_step, params, x, cfg,
-                                        cache=cache)
-    xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)    # [B, 1, di]
-    hist = torch.cat([cache["conv"], xi.to(cache["conv"].dtype)], dim=1)
-    xc = torch.einsum("bcd,cd->bd", hist, params["conv_w"]) + params["conv_b"]
-    xc = F.silu(xc)[:, None, :]                         # [B, 1, di]
+    place."""
+    tp = sharding.TensorParallel(x)
+    p = _local(tp, params)
+    x = tp.local(x)
+    conv = tp.cache_local(cache["conv"], 2)
+    ssm = tp.cache_local(cache["ssm"], 1)
+    xi, z = _in_proj(tp, p, x)                          # [B, 1, di]
+    hist = torch.cat([conv, xi.to(conv.dtype)], dim=1)
+    xc = torch.einsum("bcd,cd->bd", hist, p["conv_w"]) + p["conv_b"]
+    # contiguous: matmul takes a strided operand by another route where
+    # the weight requires grad (a parameter) than where it does not (a
+    # DTensor's local block), and the two round apart
+    xc = F.silu(xc)[:, None, :].contiguous()            # [B, 1, di]
 
-    dt, bm, cm = _ssm_params(params, xc, cfg)
-    a = torch.exp(dt[:, 0, :, None] * -torch.exp(params["A_log"]))
+    dt, bm, cm = _ssm_params(tp, p, xc, cfg)
+    a = torch.exp(dt[:, 0, :, None] * -torch.exp(p["A_log"]))
     bx = (dt[:, 0] * xc[:, 0].float())[..., None] * bm[:, 0, None, :]
-    s = cache["ssm"] * a + bx                           # [B, di, ds]
+    s = ssm * a + bx                                    # [B, di, ds]
 
     y = torch.einsum("bds,bs->bd", s, cm[:, 0])
-    y = y + params["D"] * xc[:, 0].float()
+    y = y + p["D"] * xc[:, 0].float()
     y = y[:, None, :].to(x.dtype) * F.silu(z)
-    cache["conv"].copy_(hist[:, 1:])
-    cache["ssm"].copy_(s)
-    return y @ params["out_proj"], cache
+    conv.copy_(hist[:, 1:])
+    ssm.copy_(s)
+    return tp.out(y @ p["out_proj"]), cache

@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``models/layers/moe.py``: tokens are
 scatter-packed into an [E, C, d] buffer (C = capacity per expert, over
-the tokens of this call), the experts run as one batched SwiGLU over E
+the tokens of the whole batch), the experts run as one batched SwiGLU over E
 (``torch.bmm``: the JAX package leaves these products to XLA, outside
 any kernel of its own), and the outputs are gathered back and combined
 with the gates.  The router is softmax-then-top-k with renormalised
@@ -78,38 +78,48 @@ def forward(params, x: torch.Tensor, cfg: MoEConfig):
     """x: [B, T, d] -> (y [B, T, d], aux_loss f32 scalar).
 
     aux_loss is the standard load-balancing loss (mean_prob * mean_assign
-    * E), which the JAX package's training step adds.  Under a mesh
-    every rank routes the whole batch over all the experts
-    (``sharding.replicated_call``): routing, capacity and drops are
-    those of the whole batch, as in the JAX package.
+    * E), which the JAX package's training step adds.
+
+    Under a mesh (``sharding.TensorParallel``) each rank routes its own
+    tokens (whole over ``model``), gathers the batch's routing decisions
+    (N * k ints), and takes its tokens' places from the cumsum over all
+    of them: routing, capacity and drops are the whole batch's, as in
+    the JAX package.  It scatters its tokens into the [E, C, d] buffer of
+    the whole batch's C and runs every expert on its ``model`` slice of
+    ``d_ff``; the combined outputs are partial sums over ``model``.
     """
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(forward, params, x, cfg)
-    b, t, d = x.shape
+    tp = sharding.TensorParallel(x)
+    xl = tp.local(x)
+    b, t, d = xl.shape
     n = b * t
-    e = cfg.n_experts
-    cap = capacity(n, cfg)
-    xf = x.reshape(n, d)
-    probs, gate, idx = route(params, xf, cfg)
-    onehot, pos = slots(idx, e)
+    e, k = cfg.n_experts, cfg.top_k
+    probs, gate, idx = route({"router": tp.weight(params["router"])},
+                             xl.reshape(n, d), cfg)
+    idx_all, row0 = tp.gather_rows(idx.reshape(b, t, k))
+    n_all = idx_all.shape[0] * t
+    cap = capacity(n_all, cfg)
+    onehot_all, pos_all = slots(idx_all.reshape(n_all, k), e)
+    pos = pos_all[row0 * t:row0 * t + n]
     keep = pos < cap
 
     # scatter tokens into [E, C, d]; the dropped ones all land in the
     # extra row (E, C), which is cut off
     e_idx = torch.where(keep, idx, e)
     c_idx = torch.where(keep, pos, cap)
-    buf = x.new_zeros((e + 1, cap + 1, d))
+    xf = tp.copy(xl.reshape(n, d))
+    buf = xf.new_zeros((e + 1, cap + 1, d))
     buf.index_put_((e_idx.reshape(-1), c_idx.reshape(-1)),
-                   xf.repeat_interleave(cfg.top_k, dim=0))
+                   xf.repeat_interleave(k, dim=0))
 
-    y_e = experts(params, buf[:e, :cap])                          # [E, C, d]
+    y_e = experts({name: tp.weight(params[name], dim) for name, dim in
+                   (("wi", 2), ("wg", 2), ("wo", 1))}, buf[:e, :cap])
 
     # gather back + weighted combine
     y_tok = y_e[e_idx.clamp(max=e - 1), c_idx.clamp(max=cap - 1)]
     y_tok = torch.where(keep[..., None], y_tok, 0.0)              # [N, k, d]
-    y = (y_tok * gate[..., None].to(y_tok.dtype)).sum(dim=1)
+    y = (y_tok * tp.copy(gate)[..., None].to(y_tok.dtype)).sum(dim=1)
 
-    me = probs.mean(dim=0)                                        # [E]
-    ce = onehot.sum(dim=1).float().mean(dim=0)
+    me = tp.sum_rows(probs.sum(dim=0)) / n_all                    # [E]
+    ce = onehot_all.sum(dim=1).float().mean(dim=0)
     aux = (me * ce).sum() * e
-    return y.reshape(b, t, d), aux
+    return tp.out(y.reshape(b, t, d)), tp.replicated(aux)

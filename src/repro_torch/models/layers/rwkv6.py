@@ -55,6 +55,22 @@ def init(gen: torch.Generator | None, cfg: RWKV6Config, dtype=torch.bfloat16,
     return p
 
 
+# the dim each weight splits over ``model`` (its ``p_out``: the heads);
+# ``mu``, ``wd1`` and ``bonus`` are whole on every rank
+_TP_DIM = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wd2": 1, "decay_base": 0,
+           "ln_scale": 0, "wo": 0}
+
+
+def _local(tp, params) -> dict:
+    """Each weight as this rank computes with it (see
+    ``sharding.TensorParallel``): the projections, decay and norm on its
+    heads, ``bonus`` the rows of its heads."""
+    p = {k: tp.weight(v, _TP_DIM.get(k), partial=k not in _TP_DIM)
+         for k, v in params.items()}
+    p["bonus"] = tp.block(p["bonus"], 0)
+    return p
+
+
 def _mix(x, x_prev, mu):
     """Token shift: lerp(current, previous, mu)."""
     return x + (x_prev - x) * mu.to(x.dtype)
@@ -62,8 +78,8 @@ def _mix(x, x_prev, mu):
 
 def _projections(params, x, x_prev, cfg: RWKV6Config):
     """x, x_prev: [..., d] -> r, k, v, g [..., H, N], w decay [..., H, N]
-    (f32)."""
-    h, n = cfg.n_heads, cfg.head_size
+    (f32), on the heads of the weights' columns."""
+    n = cfg.head_size
     mu = params["mu"]
     r = _mix(x, x_prev, mu[0]) @ params["wr"]
     k = _mix(x, x_prev, mu[1]) @ params["wk"]
@@ -72,47 +88,58 @@ def _projections(params, x, x_prev, cfg: RWKV6Config):
     wf = torch.tanh(_mix(x, x_prev, mu[4]) @ params["wd1"]) @ params["wd2"]
     w = torch.exp(-torch.exp(wf.float() + params["decay_base"]))
     shp = x.shape[:-1]
-    return tuple(a.reshape(*shp, h, n) for a in (r, k, v, g, w))
+    return tuple(a.reshape(*shp, -1, n) for a in (r, k, v, g, w))
 
 
-def _group_norm(params, o, cfg: RWKV6Config):
+def _group_norm(params, o):
     """Per-head RMS normalization of the output."""
     var = (o * o).mean(dim=-1, keepdim=True)
     o = o * torch.rsqrt(var + 1e-6)
-    return o.reshape(*o.shape[:-2], cfg.d_model) * params["ln_scale"]
+    return o.flatten(-2) * params["ln_scale"]
 
 
-def _out(params, o, g, x, cfg: RWKV6Config):
-    """Group norm, the SiLU gate and the out-projection: [B, T, d]."""
-    b, t, d = x.shape
-    o = _group_norm(params, o, cfg).to(x.dtype)
-    return (o * F.silu(g.reshape(b, t, d))) @ params["wo"]
+def _out(tp, params, o, g, dtype):
+    """Group norm, the SiLU gate and the out-projection: [B, T, d]
+    (under a mesh partial sums over ``model``)."""
+    o = _group_norm(params, o).to(dtype)
+    return tp.out((o * F.silu(g.flatten(-2))) @ params["wo"])
+
+
+def recurrence(r, k, v, w, u, state):
+    """The time-mixing recurrence one token at a time: r, k, v, w [B, T,
+    H, N] f32, u [H, N], state [B, H, N, N] -> (o [B, T, H, N], the
+    final state)."""
+    kv = k[..., :, None] * v[..., None, :]                  # [B,T,H,N,N]
+    ukv = u[..., None] * kv
+    outs = []
+    for i in range(r.shape[1]):
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, i],
+                                 state + ukv[:, i]))
+        state = w[:, i, ..., None] * state + kv[:, i]
+    return torch.stack(outs, dim=1), state
 
 
 def forward(params, x: torch.Tensor, cfg: RWKV6Config,
             return_state: bool = False):
     """x: [B, T, d] -> [B, T, d] (prefill), one token at a time.
 
-    return_state=True additionally returns the decode cache."""
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(forward, params, x, cfg,
-                                        return_state=return_state)
+    return_state=True additionally returns the decode cache.  Under a
+    mesh every rank runs its ``model`` slice of the heads
+    (``sharding.TensorParallel``); its ``state`` is its shard."""
+    tp = sharding.TensorParallel(x)
+    p = _local(tp, params)
+    x = tp.copy(tp.local(x))
     b, t, _ = x.shape
-    h, n = cfg.n_heads, cfg.head_size
+    n = cfg.head_size
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :t]
-    r, k, v, g, w = _projections(params, x, x_prev, cfg)
-    rf = r.float()
-    kv = k.float()[..., :, None] * v.float()[..., None, :]  # [B,T,H,N,N]
-    ukv = params["bonus"][..., None] * kv
-    state = x.new_zeros((b, h, n, n), dtype=torch.float32)
-    outs = []
-    for i in range(t):
-        outs.append(torch.einsum("bhn,bhnm->bhm", rf[:, i],
-                                 state + ukv[:, i]))
-        state = w[:, i, ..., None] * state + kv[:, i]
-    out = _out(params, torch.stack(outs, dim=1), g, x, cfg)
+    r, k, v, g, w = _projections(p, x, x_prev, cfg)
+    state = x.new_zeros((b, r.shape[2], n, n), dtype=torch.float32)
+    o, state = recurrence(r.float(), k.float(), v.float(), w, p["bonus"],
+                          state)
+    out = _out(tp, p, o, g, x.dtype)
     if return_state:
-        return out, {"shift": x[:, -1].contiguous(), "state": state}
+        return out, {"shift": tp.cache(x[:, -1].contiguous(), None),
+                     "state": tp.cache(state, 1)}
     return out
 
 
@@ -123,22 +150,21 @@ def forward_chunked(params, x: torch.Tensor, cfg: RWKV6Config,
     matrix (the flash-linear-attention chunk form).  Every decay
     exponential is a difference L_a - L_b with a >= b along time, so
     exp() stays in (0, 1]."""
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(forward_chunked, params, x, cfg,
-                                        chunk=chunk,
-                                        return_state=return_state)
-    b, t, d = x.shape
-    h, n = cfg.n_heads, cfg.head_size
+    tp = sharding.TensorParallel(x)
+    p = _local(tp, params)
+    x = tp.copy(tp.local(x))
+    b, t, _ = x.shape
+    n = cfg.head_size
     if t % chunk:
         raise ValueError(f"T {t} is not a multiple of the chunk {chunk}")
     nc = t // chunk
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :t]
-    r, k, v, g, w = _projections(params, x, x_prev, cfg)
-    u = params["bonus"]                                  # [H, N]
+    r, k, v, g, w = _projections(p, x, x_prev, cfg)
+    h = r.shape[2]
+    u = p["bonus"]                                       # [H, N]
 
     def resh(a):  # [B, T, H, N] -> [B, nc, C, H, N]
         return a.reshape(b, nc, chunk, h, n)
-
     rf, kf, vf = (resh(a.float()) for a in (r, k, v))
     logw = torch.log(resh(w).clamp(min=1e-38))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
@@ -166,9 +192,10 @@ def forward_chunked(params, x: torch.Tensor, cfg: RWKV6Config,
              + torch.einsum("bthn,bthm->bhnm", k_dec, vc))
         outs.append(o_cross + o_intra + o_bonus)
     o = torch.stack(outs, dim=1).reshape(b, t, h, n)
-    out = _out(params, o, g, x, cfg)
+    out = _out(tp, p, o, g, x.dtype)
     if return_state:
-        return out, {"shift": x[:, -1].contiguous(), "state": s}
+        return out, {"shift": tp.cache(x[:, -1].contiguous(), None),
+                     "state": tp.cache(s, 1)}
     return out
 
 
@@ -182,17 +209,18 @@ def init_cache(batch: int, cfg: RWKV6Config, dtype=torch.bfloat16,
 
 
 def decode_step(params, x: torch.Tensor, cache: dict, cfg: RWKV6Config):
-    """x: [B, 1, d] -> (y [B, 1, d], cache), the cache written in
-    place."""
-    if sharding.is_dtensor(x):
-        return sharding.replicated_call(decode_step, params, x, cfg,
-                                        cache=cache)
-    xt = x[:, 0]
-    r, k, v, g, w = _projections(params, xt, cache["shift"].to(xt.dtype),
-                                 cfg)
+    """x: [B, 1, d] -> (y [B, 1, d], cache), the cache written in place
+    (under a mesh: every rank its heads' ``state``, and the same
+    ``shift``)."""
+    tp = sharding.TensorParallel(x)
+    p = _local(tp, params)
+    xt = tp.copy(tp.local(x))[:, 0]
+    shift = tp.cache_local(cache["shift"], None)
+    state = tp.cache_local(cache["state"], 1)
+    r, k, v, g, w = _projections(p, xt, shift.to(xt.dtype), cfg)
     kv = k.float()[..., :, None] * v.float()[..., None, :]
     out = torch.einsum("bhn,bhnm->bhm", r.float(),
-                       cache["state"] + params["bonus"][..., None] * kv)
-    cache["state"].mul_(w[..., None]).add_(kv)
-    cache["shift"].copy_(xt)
-    return _out(params, out[:, None], g, x, cfg), cache
+                       state + p["bonus"][..., None] * kv)
+    state.mul_(w[..., None]).add_(kv)
+    shift.copy_(xt)
+    return _out(tp, p, out[:, None], g[:, None], xt.dtype), cache

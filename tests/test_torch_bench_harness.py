@@ -28,6 +28,20 @@ from benchmarks import plot_history as jplot_history  # noqa: E402
 from benchmarks import run as jrun  # noqa: E402
 
 BENCH = json.loads((REPO / "BENCH_kernels.json").read_text())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch intra-op thread for this module, the old count restored
+    after it: the 50,000-request virtual replay runs many small CPU ops,
+    which torch's default of a thread a core oversubscribes when several
+    test workers share the cores."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 # the kernel rows' fields that follow from the shapes alone
 ANALYTIC = ("min_hbm_bytes", "bytes_ratio", "input_bytes", "dataset_bytes",
             "vmem_ratio", "vmem_spike_bytes", "per_device_weight_bytes",

@@ -20,6 +20,16 @@ starcoder2 and 21 of 902,784 for gemma3) and held within 1e-4 under
 SEQPAR (a tenth of lr; measured 2.0e-5) and half a step (lr / 2) under
 heads-TP (measured 1.5e-4), so a step missed or doubled anywhere still
 fails.
+
+The tensor-parallel families (MoE experts' ``d_ff``, Mamba channels,
+RWKV6 heads split over model): logits within 1e-5, cache leaves within
+1e-5 of their scale (RWKV6's state sums k v over the prompt: up to ~30,
+where float32 resolves 2e-6); the same (token, slot)s dropped past
+capacity; one AdamW step's loss, first gradients and states within 1e-5,
+its params within 1e-5 but where the first gradient is noise, those
+held within ``ONE_STEP_CAP`` (2 lr: one step moves an element by at
+most lr, so two runs of one step differ by at most twice that; measured
+1.9e-4 for jamba), counted as above.
 ``compressed_psum`` is held within 1e-6 of JAX's (a sum of 8 signed
 scales in another order).
 """
@@ -43,6 +53,13 @@ GRAD_NOISE = 2e-6
 OVER_SHARE = 1e-4
 SEQPAR_CAP = 1e-4  # lr / 10
 HALF_STEP = 5e-4  # lr / 2
+ONE_STEP_CAP = 2e-3  # 2 lr
+FAMILIES = ["mixtral-8x22b/default", "mixtral-8x22b/seqpar",
+            "jamba-1.5-large-398b/default", "rwkv6-7b/default"]
+# the channels split over model in each family's tensor-parallel layers
+TP_WIDTHS = {"mixtral-8x22b": {"d_ff"},
+             "jamba-1.5-large-398b": {"d_ff", "d_inner"},
+             "rwkv6-7b": {"heads"}}
 
 
 def _jax_checkpoint(d: Path) -> dict:
@@ -185,6 +202,52 @@ def test_moe_gradients_take_the_params_placements(run):
     assert r["new_placed_as_params"] and r["m_placed_as_params"]
     assert r["sharded_leaves"] > r["n_params"] // 2
     assert np.isfinite(r["loss"])
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-7b"])
+def test_mamba_and_rwkv6_gradients_take_the_params_placements(run, arch):
+    _, res, _ = run
+    r = res["grads"][arch]
+    assert r["grads_placed_as_params"]
+    assert r["new_placed_as_params"] and r["m_placed_as_params"]
+    assert r["sharded_leaves"] > r["n_params"] // 2
+    assert np.isfinite(r["loss"])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tensor_parallel_family_serves_as_unsharded(run, family):
+    _, res, _ = run
+    r = res["families"][family]
+    assert r["calls"] == 5 and r["cache_leaves"] > 0
+    assert r["logits_gap"] <= TOL, r
+    assert r["prefill_cache_gap"] <= TOL, r
+    assert r["decode_cache_gap"] <= TOL, r
+    # the same (token, slot)s dropped past capacity, and some are
+    assert r["same_drops"]
+    assert (r["n_drops"] > 0) == ("rwkv6" not in family), r
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tensor_parallel_family_runs_on_its_model_slice(run, family):
+    """Each rank's expert product, Mamba scan and RWKV6 recurrence see a
+    quarter of d_ff, d_inner and the heads (model 4): no full copy."""
+    _, res, _ = run
+    r = res["families"][family]
+    assert set(r["full"]) == TP_WIDTHS[family.split("/")[0]]
+    assert r["local"] == {k: v // 4 for k, v in r["full"].items()}
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tensor_parallel_family_trains_as_unsharded(run, family):
+    _, res, _ = run
+    r = res["families"][family]["train"]
+    np.testing.assert_allclose(r["losses_sharded"], r["losses_plain"],
+                               rtol=TOL)
+    assert r["first_grads_gap"] <= TOL, r["first_grads_gap"]
+    assert r["state_gap"] <= TOL, r["state_gap"]
+    assert r["max_first_grad_over_tol"] < GRAD_NOISE, r
+    assert r["n_over_tol"] <= OVER_SHARE * r["n_param_elements"], r
+    assert r["max_param_gap"] <= ONE_STEP_CAP, r["max_param_gap"]
 
 
 def test_compressed_psum_matches_jax(run):

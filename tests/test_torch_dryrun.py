@@ -27,7 +27,6 @@ from repro.distributed import specs as jspecs
 from repro.launch.roofline import model_flops as jmodel_flops
 from repro.models.transformer import Model as JModel
 from repro_torch.configs import SHAPES, get_config, list_configs, reduced
-from repro_torch.configs.base import layer_kinds
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.distributed.specs import place_params
 from repro_torch.launch import debug_colls, dryrun, dryrun_snn
@@ -70,17 +69,59 @@ def test_lower_cell_on_a_fake_2x4_group(world8, arch, kind):
     assert 0 < res["arg_bytes"] <= res["peak_bytes_per_device"]
     assert res["fits_80GB"] and res["fits_80GB_traced"]
     assert res["model_flops_total"] == model_flops(cfg, TINY[kind])
-    # the layers that run on full copies are flagged
-    kinds = layer_kinds(cfg)
-    assert res["replicated_layers"] == [
-        f"layers.{i}.{part}" for i, k in enumerate(kinds)
-        for part, full in (("mixer", k.mixer in ("mamba", "rwkv")),
-                           ("ffn", k.ffn == "moe")) if full]
-    assert bool(res["replicated_layers"]) == (arch in ("mixtral-8x22b",
-                                                       "jamba-1.5-large-398b"))
+    # no layer runs on full copies: the cell flags none
+    assert "replicated_layers" not in res
     if kind != "decode":
         # FSDP gathers (data axis) at least
         assert res["collectives"] > 0 and rl["coll_by_axis"].get("data")
+
+
+# the archs whose MoE experts, Mamba channels or RWKV6 heads split over
+# model, and the local width each rank's layer sees on (2, 4)
+TP_ARCHS = {"mixtral-8x22b": "d_ff", "grok-1-314b": "d_ff",
+            "jamba-1.5-large-398b": "d_inner", "rwkv6-7b": "heads"}
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in TP_ARCHS
+                                       for k in ("train", "decode")])
+def test_tensor_parallel_cells_trace_on_their_model_slices(world8, arch,
+                                                           kind):
+    """The four archs' cells trace with every MoE, Mamba and RWKV6 layer
+    on its model slice (no ``replicated_layers``): in training the
+    expert product, the Mamba scan and the RWKV6 recurrence see a
+    quarter of ``d_ff``, ``d_inner`` and the heads on (2, 4), and the
+    model axis carries their collectives."""
+    from repro_torch.models.layers import mamba, moe, rwkv6
+
+    cfg = reduced(get_config(arch))
+    seen = {}
+    real = (moe.experts, mamba.scan, rwkv6.recurrence)
+
+    def experts(params, buf):
+        seen["d_ff"] = params["wi"].shape[-1]
+        return real[0](params, buf)
+
+    def scan(a, b):
+        seen["d_inner"] = a.shape[2]
+        return real[1](a, b)
+
+    def recurrence(r, *args):
+        seen["heads"] = r.shape[2]
+        return real[2](r, *args)
+
+    moe.experts, mamba.scan, rwkv6.recurrence = experts, scan, recurrence
+    try:
+        res = dryrun.lower_cell(arch, TINY[kind], mesh=world8[(2, 4)],
+                                cfg=cfg)
+    finally:
+        moe.experts, mamba.scan, rwkv6.recurrence = real
+    assert res["status"] == "ok" and "replicated_layers" not in res
+    assert res["roofline"]["coll_by_axis"].get("model")
+    full = {"d_ff": cfg.d_ff, "d_inner": 2 * cfg.d_model,
+            "heads": cfg.d_model // cfg.rwkv_head_size}
+    if kind == "train":
+        assert seen[TP_ARCHS[arch]] == full[TP_ARCHS[arch]] // 4, seen
+    assert all(v == full[k] // 4 for k, v in seen.items()), seen
 
 
 def test_sequence_parallel_cell_on_model_8(world8):

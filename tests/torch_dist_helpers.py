@@ -21,8 +21,15 @@ and writes what ``tests/test_torch_dist_train.py`` asserts to
 * ``TrainLoop`` over a sharded state on every rank, rank 0's writes
   slowed, failing at the step after an async save: the steps each rank
   ran, and its final state against a run without the failure;
-* mixtral-8x22b reduced, default rules: one step's gradient placements
-  against the params', and the step's new params' placements;
+* mixtral-8x22b, jamba-1.5-large and rwkv6-7b reduced, default rules:
+  one step's gradient placements against the params', and the step's
+  new params' placements;
+* the tensor-parallel families (``check_sharded_families``): reduced
+  mixtral-8x22b (default and SEQPAR rules), jamba-1.5-large and
+  rwkv6-7b in float32, sharded against unsharded from the same weights:
+  a prefill and 4 decode steps (logits, every cache leaf, the dropped
+  (token, slot)s), one AdamW step, and the channels each rank's expert
+  product, Mamba scan and RWKV6 recurrence see;
 * ``compressed_psum`` over a 1-D data mesh of every rank: one step from
   per-rank numpy inputs, and the 150-step toy regression;
 * ``restore_onto`` a sharded layout from a checkpoint the port wrote
@@ -30,7 +37,9 @@ and writes what ``tests/test_torch_dist_train.py`` asserts to
   where it exists);
 * on cards only: gemma3-1b at full width in bf16, 3 training steps
   sharded (heads-TP) against the same steps unsharded on rank 0's card
-  (losses, step wall s, peak memory a rank).
+  (losses, step wall s, peak memory a rank); the same for one layer of
+  mixtral-8x22b at full width (T 256, bf16 AdamW states), its experts'
+  ``d_ff`` split over ``model``.
 """
 
 from __future__ import annotations
@@ -82,8 +91,9 @@ def _full(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
 
 
-def _train_pair(cfg, rules, mesh, dev) -> tuple[dict, dict]:
-    """``STEPS`` AdamW steps of ``cfg`` in float32, sharded on ``mesh``
+def _train_pair(cfg, rules, mesh, dev, steps: int = STEPS
+                ) -> tuple[dict, dict]:
+    """``steps`` AdamW steps of ``cfg`` in float32, sharded on ``mesh``
     under ``rules`` and unsharded from the same weights: (what the test
     reads, the sharded params).  Besides the largest gaps, the params
     whose gap exceeds ``PARAM_TOL`` are counted, with the largest
@@ -96,7 +106,7 @@ def _train_pair(cfg, rules, mesh, dev) -> tuple[dict, dict]:
     src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=SEQ,
                           batch_size=BATCH, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                src.batch(i).items()} for i in range(STEPS)]
+                src.batch(i).items()} for i in range(steps)]
 
     def model():
         return Model(cfg, torch.float32, attn_chunk=16, loss_chunk=16,
@@ -318,7 +328,157 @@ def _first_grads(model, rules, mesh, batch) -> tuple[dict, float]:
                                   for k, g in zip(p0, g0))
 
 
-def check_moe_grad_placements(mesh, dev) -> dict:
+# the tensor-parallel families: (config, rules) of each sharded run; the
+# MoE configs at a capacity factor that drops (token, slot)s
+MOE_CAPACITY = 0.5
+FAMILIES = (("mixtral-8x22b", "default"), ("mixtral-8x22b", "seqpar"),
+            ("jamba-1.5-large-398b", "default"), ("rwkv6-7b", "default"))
+
+
+@contextlib.contextmanager
+def _recording_local_shapes(seen: dict):
+    """Records, for the block, the channels a rank's expert product
+    (``d_ff``), Mamba scan (``d_inner``) and RWKV6 recurrence (heads)
+    see, and each MoE routing's places of its (token, slot)s (in
+    ``seen["places"]``)."""
+    from repro_torch.models.layers import mamba, moe, rwkv6
+
+    real = (moe.experts, moe.slots, mamba.scan, rwkv6.recurrence)
+
+    def experts(params, buf):
+        seen.setdefault("d_ff", params["wi"].shape[-1])
+        return real[0](params, buf)
+
+    def slots(idx, n_experts):
+        onehot, pos = real[1](idx, n_experts)
+        seen.setdefault("places", []).append(pos)
+        return onehot, pos
+
+    def scan(a, b):
+        seen.setdefault("d_inner", a.shape[2])
+        return real[2](a, b)
+
+    def recurrence(r, *args):
+        seen.setdefault("heads", r.shape[2])
+        return real[3](r, *args)
+
+    moe.experts, moe.slots = experts, slots
+    mamba.scan, rwkv6.recurrence = scan, recurrence
+    try:
+        yield seen
+    finally:
+        moe.experts, moe.slots, mamba.scan, rwkv6.recurrence = real
+
+
+def _family_rules(kind: str) -> dict:
+    from repro_torch.distributed import sharding as shd
+
+    return (shd.use_rules(**shd.SEQPAR_RULES_OVERRIDES) if kind == "seqpar"
+            else shd.use_rules())
+
+
+def _serve_family(cfg, rules, mesh, dev) -> dict:
+    """``cfg`` served sharded under ``rules`` and unsharded from the same
+    weights: a ``SERVE_PROMPT``-token prefill of 4 sequences and
+    ``DECODE`` decode steps of fixed tokens.  The largest gaps of the
+    logits (every call) and of every cache leaf after the prefill and
+    after the last step (over the leaf's scale), the local channels the
+    sharded run's layers saw, and whether its MoE routings dropped the
+    same (token, slot)s."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.specs import map_tree, place_params
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models.layers import moe
+    from repro_torch.models.transformer import Model
+
+    rng = np.random.default_rng(11)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (4, SERVE_PROMPT))).to(dev)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (DECODE, 4, 1))).to(dev)
+
+    def serve(model, params):
+        logits, cache, n = make_prefill_step(model, SERVE_MAX_LEN)(
+            params, {"tokens": tok})
+        out = [_full(logits)]
+        caches = [map_tree(lambda t: _full(t).clone(), cache)]
+        step = make_serve_step(model)
+        for i in range(DECODE):
+            logits, cache = step(params, feed[i], cache, n + i)
+            out.append(_full(logits))
+        caches.append(map_tree(_full, cache))
+        return out, caches
+
+    def leaves(tree):
+        out = []
+        map_tree(out.append, tree)
+        return out
+
+    def drops(places):
+        mcfg = plain.moe_cfg()
+        return [(pos >= moe.capacity(pos.shape[0], mcfg)).tolist()
+                for pos in places]
+
+    plain = Model(cfg, torch.float32, attn_chunk=16, device=dev, seed=2)
+    want_seen: dict = {}
+    with _recording_local_shapes(want_seen):
+        want, c_want = serve(plain, dict(plain.named_parameters()))
+    sharded = Model(cfg, torch.float32, attn_chunk=16, device=dev, seed=2)
+    seen: dict = {}
+    with shd.use_mesh(mesh, rules), _recording_local_shapes(seen):
+        got, c_got = serve(sharded, place_params(sharded, mesh, rules))
+    # each cache leaf's gap over its largest magnitude where that exceeds
+    # 1 (the RWKV6 state sums k v over the prompt, up to ~30 here)
+    gaps = [max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+                for a, b in zip(leaves(g), leaves(w)))
+            for g, w in zip(c_got, c_want)]
+    return {"logits_gap": max(float((a - b).abs().max())
+                              for a, b in zip(got, want)),
+            "prefill_cache_gap": gaps[0], "decode_cache_gap": gaps[1],
+            "calls": len(got), "cache_leaves": len(leaves(c_got[0])),
+            "local": {k: v for k, v in seen.items() if k != "places"},
+            "full": {k: v for k, v in want_seen.items() if k != "places"},
+            "same_drops": (drops(seen.get("places", []))
+                           == drops(want_seen.get("places", []))),
+            "n_drops": sum(sum(map(sum, d)) for d in
+                           drops(want_seen.get("places", [])))}
+
+
+def check_sharded_families(mesh, dev) -> dict:
+    """Reduced mixtral-8x22b (default and SEQPAR rules), jamba-1.5-large
+    and rwkv6-7b in float32 (the MoE layers at ``MOE_CAPACITY``), each
+    sharded against the unsharded port from the same weights: serving
+    (:func:`_serve_family`) and one AdamW step (:func:`_train_pair`)."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+
+    out = {}
+    for arch, kind in FAMILIES:
+        cfg = reduced(get_config(arch))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=MOE_CAPACITY)
+        rules = _family_rules(kind)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = _serve_family(cfg, rules, mesh, dev)
+        res["train"], _ = _train_pair(cfg, rules, mesh, dev, steps=1)
+        # both runs, sharded and unsharded, on the host's clock; the peak
+        # memory this rank allocated (on cards)
+        res["wall_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            res["peak_bytes_rank"] = torch.cuda.max_memory_allocated(dev)
+        out[f"{arch}/{kind}"] = res
+    return out
+
+
+def check_grad_placements(mesh, dev, arch: str = "mixtral-8x22b") -> dict:
     import torch
 
     from repro_torch.configs import get_config, reduced
@@ -329,7 +489,7 @@ def check_moe_grad_placements(mesh, dev) -> dict:
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamW, AdamWConfig
 
-    cfg = reduced(get_config("mixtral-8x22b"))
+    cfg = reduced(get_config(arch))
     model = Model(cfg, torch.float32, attn_chunk=16, loss_chunk=16,
                   device=dev, seed=1)
     rules = shd.use_rules()
@@ -450,11 +610,15 @@ def _like_tree(d: Path, dev) -> dict:
             for k, v in man["leaves"].items()}
 
 
-def check_full_size_steps(mesh, dev, steps: int = 3) -> dict:
-    """gemma3-1b at full width in bf16, phase 13's shape (B 4, T 1,024,
-    remat): ``steps`` AdamW steps sharded on ``mesh``, then (rank 0) the
-    same steps unsharded on its card: losses, wall s a step (host clock
-    to a synchronize) and the sharded run's peak memory on this rank."""
+def check_full_size_steps(mesh, dev, arch: str = "gemma3-1b",
+                          cut: dict | None = None, seq: int = 1024,
+                          bf16_states: bool = False, steps: int = 3
+                          ) -> dict:
+    """``arch`` at full width in bf16 (its config changed by ``cut``),
+    B 4 and T ``seq`` (gemma3-1b: phase 13's shape), remat: ``steps``
+    AdamW steps sharded on ``mesh``, then (rank 0) the same steps
+    unsharded on its card: losses, wall s a step (host clock to a
+    synchronize) and the sharded run's peak memory on this rank."""
     import time
 
     import torch
@@ -468,8 +632,10 @@ def check_full_size_steps(mesh, dev, steps: int = 3) -> dict:
     from repro_torch.models.transformer import Model
     from repro_torch.optim import AdamW, AdamWConfig
 
-    cfg = get_config("gemma3-1b")
-    src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=1024,
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch), **(cut or {}))
+    src = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq,
                           batch_size=4, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 src.batch(i).items()} for i in range(steps)]
@@ -478,7 +644,8 @@ def check_full_size_steps(mesh, dev, steps: int = 3) -> dict:
     def run(placed: bool):
         model = Model(cfg, torch.bfloat16, loss_chunk=256, attn_chunk=512,
                       device=dev, seed=0)
-        opt = AdamW(AdamWConfig(lr=1e-3))
+        opt = AdamW(AdamWConfig(lr=1e-3, state_dtype=(
+            torch.bfloat16 if bf16_states else torch.float32)))
         step = make_train_step(model, opt)
         ctx = (shd.use_mesh(mesh, rules) if placed
                else contextlib.nullcontext())
@@ -530,12 +697,19 @@ def worker(rank: int, world: int, out: str, cuda: bool = False) -> None:
         results["headstp"] = check_headstp_train(mesh, dev)
         results["serve"] = check_sharded_serve(mesh, dev)
         results["loop"] = check_trainloop_recovery(mesh, out, dev)
-        results["moe"] = check_moe_grad_placements(mesh, dev)
+        results["moe"] = check_grad_placements(mesh, dev)
+        results["grads"] = {arch: check_grad_placements(mesh, dev, arch)
+                            for arch in ("jamba-1.5-large-398b",
+                                         "rwkv6-7b")}
+        results["families"] = check_sharded_families(mesh, dev)
         results["psum"] = check_compressed_psum(out, dev)
         dist.barrier()
         results["restore"] = check_restore_onto(mesh, out, dev)
         if cuda:
             results["full_size"] = check_full_size_steps(mesh, dev)
+            results["full_size_moe"] = check_full_size_steps(
+                mesh, dev, "mixtral-8x22b", {"n_layers": 1}, seq=256,
+                bf16_states=True)
         if rank == 0:
             (out / "results.json").write_text(json.dumps(results))
     finally:

@@ -212,7 +212,13 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    jamba-1.5-large-398b at 5 layers (Mamba at 0-3, attention at 4, MoE
    at 1 and 3), 4 requests of up to 1,024 prompt tokens; (d) rwkv6-7b at
    full depth, 4 requests of up to 512 (the blocked prefill where 64
-   divides the prompt); (e) whisper-small at full depth, one batch of
+   divides the prompt), then at 2 layers the per-token recurrence
+   (``rwkv_chunk`` 0): a prefill of 32,768 tokens at B 1 and one
+   training step (loss and backward) at B 1, T 2,048, each with its wall
+   time and peak memory allocated, held against the same run in the
+   chunk-64 form (last-token logits within 2^-5 of their largest
+   magnitude, layer 0's final state within 1e-3, each gradient within
+   2^-5 in norm); (e) whisper-small at full depth, one batch of
    1,500 frames, a prefill and 16 decode steps through ``Model`` (36
    flash launches), its cross-attention k and v checked against TMA's
    alignment rule; (f) internvl2-26b at 2 layers, 256 patches before a
@@ -3425,6 +3431,122 @@ def mixtral_f32_checks(m32) -> None:
             fail("mixtral's teacher-forced decode differs from prefill")
 
 
+# (d)'s per-token parts: prefill_32k's prompt length and a training
+# sequence, rwkv6-7b cut to 2 layers; the per-token form (``rwkv_chunk``
+# 0, ``models.layers.scan``) held against the chunk-64 form.  The two
+# are one recurrence summed in another order in float32, each layer's
+# output then rounded to bf16: a bf16 ulp (2^-8) where the order moves
+# it, through 2 layers and the head
+RWKV_PREFILL, RWKV_TRAIN_SEQ = 32_768, 2_048
+RWKV_LOGIT_TOL = 2 ** -5  # of the chunk-64 logits' largest magnitude
+RWKV_STATE_TOL = 1e-3     # layer 0's final state (float32 on equal inputs)
+RWKV_GRAD_TOL = 2 ** -5   # ||per-token - chunk-64|| / ||chunk-64||, each
+
+
+def rwkv_per_token() -> None:
+    """(d)'s per-token parts: rwkv6-7b at full width in bf16, 2 layers,
+    unchunked: a prefill of a ``RWKV_PREFILL``-token prompt at B 1 and
+    one training step (loss and backward) at B 1, T ``RWKV_TRAIN_SEQ``,
+    each timed, its peak memory printed, and held against the same run
+    in the chunk-64 form; then the card's busy share of a short
+    per-token prefill and training step."""
+    from repro_torch.kernels import ops
+
+    model = family_model("rwkv6-7b", 2)
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(35)
+
+    def run(chunk, fn):
+        """``fn()`` with ``rwkv_chunk`` = ``chunk``: (its result, wall s,
+        peak bytes allocated)."""
+        model.rwkv_chunk = chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    def prefill(toks):
+        with torch.inference_mode():
+            logits, cache, _ = model.prefill(toks, toks.shape[1])
+        return (logits[:, :cfg.vocab_size].float(),
+                [layer["rwkv"]["state"] for layer in cache["decoder"]])
+
+    def grads(tokens):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss({"tokens": tokens[:, :-1],
+                           "labels": tokens[:, 1:]})
+        loss.backward()
+        out = (float(loss.detach()),
+               {n: p.grad.float() for n, p in model.named_parameters()
+                if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+        return out
+
+    # warm-up of both forms outside the timed runs
+    warm = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 129))).to(dev)
+    for chunk in (0, 64):
+        run(chunk, lambda: (prefill(warm[:, :128]), grads(warm)))
+    before = ops.launch_counts()
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, RWKV_PREFILL))).to(dev)
+    (tok_l, tok_s), tok_wall, tok_peak = run(0, lambda: prefill(prompt))
+    (chk_l, chk_s), chk_wall, chk_peak = run(64, lambda: prefill(prompt))
+    logit_gap = rel_err(tok_l, chk_l)
+    state_gaps = [rel_err(a, b) for a, b in zip(tok_s, chk_s)]
+    print(f"lm families: rwkv6-7b (2 layers) bf16 prefill of {RWKV_PREFILL} "
+          f"tokens, B 1: per-token (rwkv_chunk 0) {tok_wall} s, peak "
+          f"allocated {tok_peak / 1e9} GB; chunk 64 {chk_wall} s, peak "
+          f"{chk_peak / 1e9} GB; max |per-token - chunk-64| / max |logit| "
+          f"= {logit_gap} (bound {RWKV_LOGIT_TOL}), greedy token equal: "
+          f"{int(tok_l.argmax()) == int(chk_l.argmax())}; final states' "
+          f"max |diff| / max |state| by layer {state_gaps} (layer 0 bound "
+          f"{RWKV_STATE_TOL})", flush=True)
+    if not (torch.isfinite(tok_l).all() and logit_gap <= RWKV_LOGIT_TOL
+            and state_gaps[0] <= RWKV_STATE_TOL):
+        fail("rwkv6's per-token prefill differs from the chunk-64 prefill")
+    del tok_l, tok_s, chk_l, chk_s, prompt
+
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, RWKV_TRAIN_SEQ + 1))).to(dev)
+    (tok_loss, tok_g), tok_wall, tok_peak = run(0, lambda: grads(tokens))
+    (chk_loss, chk_g), chk_wall, chk_peak = run(64, lambda: grads(tokens))
+    gaps = {n: float((tok_g[n] - g).norm() / g.norm().clamp_min(1e-30))
+            for n, g in chk_g.items()}
+    worst = max(gaps, key=gaps.get)
+    print(f"lm families: rwkv6-7b (2 layers) bf16 training step (loss and "
+          f"backward, remat) at B 1, T {RWKV_TRAIN_SEQ}: per-token "
+          f"{tok_wall} s, peak allocated {tok_peak / 1e9} GB, loss "
+          f"{tok_loss}; chunk 64 {chk_wall} s, peak {chk_peak / 1e9} GB, "
+          f"loss {chk_loss}; {len(gaps)} gradients, largest ||per-token - "
+          f"chunk-64|| / ||chunk-64|| {gaps[worst]} ({worst}; bound "
+          f"{RWKV_GRAD_TOL})", flush=True)
+    if (set(tok_g) != set(chk_g) or gaps[worst] > RWKV_GRAD_TOL
+            or not all(torch.isfinite(g).all() for g in tok_g.values())):
+        fail("rwkv6's per-token training step's gradients differ from the "
+             "chunk-64 step's")
+    # where the per-token form's time goes: the card's share of a short
+    # prefill and a short training step
+    model.rwkv_chunk = 0
+    for what, call in (("prefill of 1,024 tokens",
+                        lambda: prefill(tokens[:, :1024])),
+                       ("training step at T 256",
+                        lambda: grads(tokens[:, :257]))):
+        wall_us, share, top = busy_share(call)
+        print(f"lm families trace: rwkv6-7b (2 layers) per-token {what}: "
+              f"wall {wall_us} us, card busy {share} of it; device work: "
+              f"{top}", flush=True)
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+    print(f"lm families: rwkv6-7b per-token parts launched "
+          f"{launched or 'none'} of the port's kernels (no attention)",
+          flush=True)
+    del model, tok_g, chk_g
+    torch.cuda.empty_cache()
+
+
 def phase_lm_families() -> tuple[dict, dict]:
     """Phase 12: the LM families at full width in bfloat16 on the card,
     depth cut (printed), random weights from a seed; each model freed
@@ -3505,6 +3627,7 @@ def phase_lm_families() -> tuple[dict, dict]:
         0, model.cfg.vocab_size, (1, 512))).to(dev), 1024, f32=False)
     del model
     torch.cuda.empty_cache()
+    rwkv_per_token()
 
     # (e) whisper-small at full depth: one batch of 1,500 frames
     from repro_torch.kernels.flash_attention import _strides

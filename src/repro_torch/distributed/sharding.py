@@ -367,8 +367,10 @@ class TensorParallel:
     Built from the layer's input ``x``.  Inside, the layer computes on
     plain local tensors: its rows of ``x`` (the batch's split kept,
     whole over ``model``: gathered there where a sequence-parallel rule
-    splits the sequence), each weight's block on this rank's ``model``
-    index (gathered over the other axes at use, as FSDP gathers), and
+    splits the sequence; whole over any other axis that splits it
+    otherwise or holds its partial sums), each weight's block on this
+    rank's ``model`` index (gathered over the other axes at use, as FSDP
+    gathers), and
     the few collectives of tensor parallelism, all over ``model``:
 
     * :meth:`copy`: the identity, its gradient summed (a whole tensor
@@ -408,12 +410,11 @@ class TensorParallel:
             self.n = mesh.size(self.tp)
             self.rank = mesh.get_coordinate()[self.tp]
             self.group = mesh.get_group(self.tp)
-        self.pl = [Replicate() if i == self.tp else p
-                   for i, p in enumerate(x.placements)]
-        if any(p.is_partial() or (p.is_shard() and p.dim != 0)
-               for p in self.pl):
-            raise ValueError(f"x placed {x.placements}: a tensor-parallel "
-                             f"layer takes its rows split on dim 0 only")
+        # rows split on dim 0 stay split; any other split or partial sum
+        # (a decode batch of one: its embedding's d split over data) is
+        # made whole
+        self.pl = [p if i != self.tp and p.is_shard() and p.dim == 0
+                   else Replicate() for i, p in enumerate(x.placements)]
         self.rows = [i for i, p in enumerate(self.pl) if p.is_shard()]
 
     def local(self, x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ ops on (to infer output shapes) are left out of every count.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import traceback
 import weakref
@@ -39,6 +40,8 @@ from collections import Counter
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.models.layers import scan as _scan
 
 _COLLECTIVES = {
     "all_gather_into_tensor": "all-gather",
@@ -94,10 +97,16 @@ def _source() -> str:
 
 class OpCost(TorchDispatchMode):
     """Count one step (see the module docstring).  ``mesh``: the
-    ``DeviceMesh`` whose groups name the collectives' axes."""
+    ``DeviceMesh`` whose groups name the collectives' axes;
+    ``trip_count``: count ``models.layers.scan`` loops by their trip
+    count (False: trace every step)."""
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, trip_count: bool = True):
         super().__init__()
+        self.trip_count = trip_count
+        self.scale = 1
+        self._pending: list[tuple] = []
+        self._reserved: dict[int, weakref.finalize] = {}
         self.flops = 0
         self.bytes = 0
         self.collectives: Counter = Counter()
@@ -140,6 +149,69 @@ class OpCost(TorchDispatchMode):
         self.peak = max(self.peak, self.live)
         return n
 
+    def reserve(self, n: int):
+        """Count ``n`` more bytes live (memory a loop counted by its
+        trip count does not trace) until the returned function is
+        called."""
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+        def release():
+            nonlocal n
+            self.live -= n
+            n = 0
+        return release
+
+    def reserve_while(self, n: int, owner: torch.Tensor) -> None:
+        """Count ``n`` more bytes live, from now on, for as long as the
+        storage of ``owner`` lives (or until :meth:`release`).  Settled
+        at the next op: by then autograd has kept ``owner`` as a saved
+        tensor or let it go (a checkpointed forward)."""
+        self._pending.append((weakref.ref(owner.untyped_storage()), n,
+                              self.live))
+
+    def release(self, owner: torch.Tensor) -> None:
+        """End the reservation of ``owner`` early."""
+        self._settle()
+        fin = self._reserved.get(owner.untyped_storage()._cdata)
+        if fin is not None:
+            fin()
+
+    def _settle(self) -> None:
+        pending, self._pending = self._pending, []
+        for ref, n, live_then in pending:
+            s = ref()
+            if s is None:
+                continue
+            self.live += n
+            self.peak = max(self.peak, live_then + n, self.live)
+            self._reserved[s._cdata] = weakref.finalize(
+                s, self._unreserve, s._cdata, n)
+
+    def _unreserve(self, key, n: int) -> None:
+        self._reserved.pop(key, None)
+        self.live -= n
+
+    @contextlib.contextmanager
+    def scaled(self, times: int):
+        """Count each op inside ``times`` times (a loop's trip count);
+        at 0 an op is not seen at all, nor is its memory."""
+        outer, self.scale = self.scale, self.scale * times
+        try:
+            yield
+        finally:
+            self.scale = outer
+
+    def __enter__(self):
+        if self.trip_count:
+            _scan.counters.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self.trip_count:
+            _scan.counters.remove(self)
+        return super().__exit__(*exc)
+
     # --- dispatch ----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -148,9 +220,12 @@ class OpCost(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
+        if self._pending:
+            self._settle()
         out = func(*args, **kwargs)
-        if _in_sharding_propagation():
+        if self.scale == 0 or _in_sharding_propagation():
             return out
+        times = self.scale
         packet = func._overloadpacket
         if func.namespace in ("_c10d_functional", "c10d_functional"):
             kind = _COLLECTIVES.get(packet.__name__)
@@ -159,16 +234,17 @@ class OpCost(TorchDispatchMode):
                 groups = [a for a in args if isinstance(a, str)]
                 axis = self._axes.get(groups[-1] if groups else None,
                                       groups[-1] if groups else "?")
-                self.collectives[kind] += n
-                self.coll_by_axis[axis] += n
-                self.records.append({"kind": kind, "bytes": n, "axis": axis,
-                                     "source": _source()})
+                self.collectives[kind] += n * times
+                self.coll_by_axis[axis] += n * times
+                self.records.extend([{"kind": kind, "bytes": n, "axis": axis,
+                                      "source": _source()}] * times)
         elif func.namespace != "prim" and not func.is_view:
             if packet in flop_registry:
-                self.flops += flop_registry[packet](*args, **kwargs,
-                                                    out_val=out)
-            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.bytes += sum(_nbytes(t) for t in _tensors(out))
+                self.flops += times * flop_registry[packet](
+                    *args, **kwargs, out_val=out)
+            self.bytes += times * (
+                sum(_nbytes(t) for t in _tensors((args, kwargs)))
+                + sum(_nbytes(t) for t in _tensors(out)))
         for t in _tensors(out):
             self._hold(t)
         return out

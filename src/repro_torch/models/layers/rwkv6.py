@@ -7,10 +7,11 @@ recurrence (per head, head size N):
 with a data-dependent decay w_t = exp(-exp(wf_t)) from a low-rank MLP of
 the token-shifted input, and the bonus u for the current token.
 
-``forward`` walks the tokens one at a time (a Python loop: four
-launches a token after the products, computed for all tokens at once);
-``forward_chunked`` is the blocked form, the state carried only across
-chunks.  Decode carries (shift, state) and writes both in place.
+``forward`` walks the tokens one at a time (``scan``, the JAX package's
+``lax.scan``: each step forms its own ``k_t^T v_t``, six launches a
+token after the products); ``forward_chunked`` is the blocked form, the
+state carried only across chunks.  Decode carries (shift, state) and
+writes both in place.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
 from repro_torch.models.layers.init import normal
+from repro_torch.models.layers.scan import scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,18 +107,22 @@ def _out(tp, params, o, g, dtype):
     return tp.out((o * F.silu(g.flatten(-2))) @ params["wo"])
 
 
+def _step(state, x_t, consts):
+    """One token: (state [B, H, N, N], (r, k, v, w) [B, H, N]) -> (the
+    next state, o [B, H, N]), the JAX package's scan body."""
+    r, k, v, w = x_t
+    (u,) = consts                                           # [H, N, 1]
+    kv = k[..., :, None] * v[..., None, :]                  # [B, H, N, N]
+    out = torch.einsum("bhn,bhnm->bhm", r, state + u * kv)
+    return w[..., None] * state + kv, out
+
+
 def recurrence(r, k, v, w, u, state):
     """The time-mixing recurrence one token at a time: r, k, v, w [B, T,
     H, N] f32, u [H, N], state [B, H, N, N] -> (o [B, T, H, N], the
     final state)."""
-    kv = k[..., :, None] * v[..., None, :]                  # [B,T,H,N,N]
-    ukv = u[..., None] * kv
-    outs = []
-    for i in range(r.shape[1]):
-        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, i],
-                                 state + ukv[:, i]))
-        state = w[:, i, ..., None] * state + kv[:, i]
-    return torch.stack(outs, dim=1), state
+    state, o = scan(_step, state, (r, k, v, w), (u[..., None],))
+    return o, state
 
 
 def forward(params, x: torch.Tensor, cfg: RWKV6Config,
@@ -172,8 +178,7 @@ def forward_chunked(params, x: torch.Tensor, cfg: RWKV6Config,
 
     s = x.new_zeros((b, h, n, n), dtype=torch.float32)
     outs = []
-    for c in range(nc):
-        rc, kc, vc, lw = rf[:, c], kf[:, c], vf[:, c], logw[:, c]
+    for rc, kc, vc, lw in zip(*(a.unbind(1) for a in (rf, kf, vf, logw))):
         big_l = torch.cumsum(lw, dim=1)        # L_t = sum_{s<=t} log w_s
         l_prev = big_l - lw                    # L_{t-1}
         # cross-chunk: o_t += (r_t * exp(L_{t-1})) @ S

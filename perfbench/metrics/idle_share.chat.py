@@ -1,0 +1,7 @@
+"""idle_share (%): the share of the traced slice in which no operation
+ran on the card."""
+
+
+def read(run):
+    t = run.trace
+    return 100.0 * (1.0 - t.busy_s / t.window_s) if t.window_s > 0 else None

@@ -43,6 +43,7 @@ from repro_torch.distributed.sharding import (constrain, current_mesh,
 from repro_torch.distributed.specs import param_logical_tree
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import tracing
 
 
 def bind_params(model: nn.Module, params: dict) -> dict:
@@ -88,9 +89,9 @@ def make_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
                     accum_dtype: Any = torch.bfloat16):
     def grad_fn(params: dict, micro: dict):
         bound = bind_params(model, params)
-        with torch.profiler.record_function("train/forward"):
+        with tracing.span("train/forward"):
             loss = model.loss(micro)
-        with torch.profiler.record_function("train/backward"):
+        with tracing.span("train/backward"):
             grads = torch.autograd.grad(loss, list(bound.values()),
                                         allow_unused=True,
                                         materialize_grads=True)
@@ -123,7 +124,7 @@ def make_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
             # stay in accum_dtype: /accum is exact for power-of-2 steps
             grads = {k: g / accum_steps for k, g in grads.items()}
 
-        with torch.profiler.record_function("train/optimizer"):
+        with tracing.span("train/optimizer"):
             new_params, new_state = opt.apply(grads, opt_state, params,
                                               rng=gen)
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))

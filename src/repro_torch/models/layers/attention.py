@@ -40,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers.init import normal
 from repro_torch.models.layers.rope import apply_rope, apply_rope_per_batch
+from repro_torch.runtime import tracing
 
 _NEG_INF = -1e30
 
@@ -372,39 +373,41 @@ def decode_step(params, x, cache, cache_len, cfg: AttnConfig):
     Writes the new k and v into ``cache`` in place; returns
     (y [B, 1, d], cache).
     """
-    b = x.shape[0]
-    s_alloc = cache["k"].shape[2]
-    ring = cfg.window is not None and s_alloc == cfg.window
-    cl = torch.as_tensor(cache_len, device=x.device).to(torch.int64)
-    per_seq = cl.ndim == 1  # continuous batching
-    q, k, v = _split_qkv(params, x, cfg)
-    if cfg.use_rope:
-        if per_seq:
-            q = apply_rope_per_batch(q, cl, cfg.rope_theta)
-            k = apply_rope_per_batch(k, cl, cfg.rope_theta)
+    with tracing.span("attn/decode", device=x.is_cuda):
+        b = x.shape[0]
+        s_alloc = cache["k"].shape[2]
+        ring = cfg.window is not None and s_alloc == cfg.window
+        cl = torch.as_tensor(cache_len, device=x.device).to(torch.int64)
+        per_seq = cl.ndim == 1  # continuous batching
+        q, k, v = _split_qkv(params, x, cfg)
+        if cfg.use_rope:
+            if per_seq:
+                q = apply_rope_per_batch(q, cl, cfg.rope_theta)
+                k = apply_rope_per_batch(k, cl, cfg.rope_theta)
+            else:
+                pos = cl.reshape(1)
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+        # the JAX package's dynamic_update_slice clamps the slot the same way
+        slot = (cl % s_alloc if ring else cl).clamp(0, s_alloc - 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            if _is_dtensor(c):
+                _write_slot(c, cache_len, new, ring)
+            elif per_seq:
+                c[torch.arange(b, device=c.device), :, slot] = \
+                    new[:, :, 0].to(c.dtype)
+            else:
+                c.index_copy_(2, slot.reshape(1), new.to(c.dtype))
+        if ring:
+            # ring holds exactly the window; mask only during warm-up
+            valid = torch.clamp(cl + 1, max=s_alloc)
+            out = decode_attention(q, cache["k"], cache["v"], valid,
+                                   window=None)
         else:
-            pos = cl.reshape(1)
-            q = apply_rope(q, pos, cfg.rope_theta)
-            k = apply_rope(k, pos, cfg.rope_theta)
-    # the JAX package's dynamic_update_slice clamps the slot the same way
-    slot = (cl % s_alloc if ring else cl).clamp(0, s_alloc - 1)
-    for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        if _is_dtensor(c):
-            _write_slot(c, cache_len, new, ring)
-        elif per_seq:
-            c[torch.arange(b, device=c.device), :, slot] = \
-                new[:, :, 0].to(c.dtype)
-        else:
-            c.index_copy_(2, slot.reshape(1), new.to(c.dtype))
-    if ring:
-        # ring holds exactly the window; mask only during warm-up
-        valid = torch.clamp(cl + 1, max=s_alloc)
-        out = decode_attention(q, cache["k"], cache["v"], valid, window=None)
-    else:
-        out = decode_attention(q, cache["k"], cache["v"], cl + 1,
-                               window=cfg.window)
-    y = out.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
-    if cfg.use_bias:
-        y = y + params["bo"]
+            out = decode_attention(q, cache["k"], cache["v"], cl + 1,
+                                   window=cfg.window)
+        y = out.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+        if cfg.use_bias:
+            y = y + params["bo"]
     return y, cache

@@ -56,6 +56,7 @@ from repro_torch.models.layers import moe as moe_l
 from repro_torch.models.layers import norm as norm_l
 from repro_torch.models.layers import rwkv6 as rwkv_l
 from repro_torch.models.layers.init import normal
+from repro_torch.runtime import tracing
 
 
 def _under_mesh(fn):
@@ -574,20 +575,21 @@ class Model(nn.Module):
         """One serving step.  tokens: int[B, 1]; cache_len: int or int[B]
         (per-sequence lengths).  Returns (logits f32[B, Vp], cache), the
         cache written in place."""
-        x = self._lookup(tokens)
-        if self.pos_emb == "learned":
-            if isinstance(cache_len, int):
-                x = x + self.pos_embed[
-                    min(max(cache_len, 0), self.cfg.max_seq_len - 1)]
-            else:
-                cl = torch.as_tensor(cache_len, device=self.device)
-                cl = cl.to(torch.int64).clamp(0, self.cfg.max_seq_len - 1)
-                pos = self.pos_embed[cl]
-                x = x + (pos[:, None, :] if cl.ndim == 1 else pos)
-        for block, layer_cache in zip(self.layers, cache["decoder"]):
-            x = self._decode_sublayer(block, x, layer_cache, cache_len)
-        x = self._norm_apply(self.final_norm, x)
-        return self._logits(x)[:, 0], cache
+        with tracing.span("model/decode"):
+            x = self._lookup(tokens)
+            if self.pos_emb == "learned":
+                if isinstance(cache_len, int):
+                    x = x + self.pos_embed[
+                        min(max(cache_len, 0), self.cfg.max_seq_len - 1)]
+                else:
+                    cl = torch.as_tensor(cache_len, device=self.device)
+                    cl = cl.to(torch.int64).clamp(0, self.cfg.max_seq_len - 1)
+                    pos = self.pos_embed[cl]
+                    x = x + (pos[:, None, :] if cl.ndim == 1 else pos)
+            for block, layer_cache in zip(self.layers, cache["decoder"]):
+                x = self._decode_sublayer(block, x, layer_cache, cache_len)
+            x = self._norm_apply(self.final_norm, x)
+            return self._logits(x)[:, 0], cache
 
     @torch.no_grad()
     @_under_mesh

@@ -1,4 +1,5 @@
-"""repro_torch.runtime — fault-tolerant training loop, straggler watchdog."""
+"""repro_torch.runtime — fault-tolerant training loop, straggler watchdog;
+spans (``runtime.tracing``)."""
 
 from repro_torch.runtime.train_loop import (SimulatedFailure, TrainLoop,
                                             TrainLoopConfig)

@@ -21,6 +21,7 @@ encoder-decoder and internvl2's vision prefix are driven through
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Optional
 
@@ -40,6 +41,8 @@ class Request:
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: int = -1
+    t_submit: Optional[float] = None  # time.perf_counter() at submit()
+    t_admit: Optional[float] = None   # ... as it leaves the queue
 
 
 class ServingEngine:
@@ -75,6 +78,7 @@ class ServingEngine:
             raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt "
                              f"tokens leave no room in a cache of max_len "
                              f"{self.max_len}")
+        req.t_submit = time.perf_counter()
         self.queue.append(req)
 
     def _splice(self, slot: int, one_cache: dict) -> None:
@@ -90,6 +94,7 @@ class ServingEngine:
         while free and self.queue:
             slot = free.pop(0)
             req = self.queue.popleft()
+            req.t_admit = time.perf_counter()
             toks = torch.tensor([req.prompt], dtype=torch.int64,
                                 device=self.device)
             logits, cache1, clen = self.model.prefill(toks, self.max_len)

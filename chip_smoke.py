@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 
 1. Device: requires a CUDA card; prints the card's name and power limit.
 2. Build: compiles the kernel libraries with ``nvcc`` into ``build/``
-   (``snn_infer.cu``, ``snn_train.cu``, ``snn_step.cu`` and
-   ``flash_attn.cu``, one compiler each, at once) and prints their ptxas
+   (``snn_infer.cu``, ``snn_train.cu``, ``snn_step.cu``, ``flash_attn.cu``
+   and ``decode_attn.cu``, one compiler each, at once) and prints their ptxas
    lines; the serving GEMM regime's two sums kernels must not spill.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the
    card (every output ``torch.equal``), then timed, with its bound.
@@ -136,12 +136,21 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    it), all three as device time from the profiler (the kernel by its
    own dtype's symbol, the other two every kernel and copy of a call),
    with the achieved TFLOP/s and kernel/bound (the float32 bound: three
-   TF32 products at the tensor cores' rate).  Then gemma3-1b at full
-   width in bfloat16, random weights from a seed, served by
-   ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy requests of 37
-   to 2,048 prompt tokens, 32 new tokens each, with the launch counts set
-   to 0 before and read after (flash launches must be 26 x 8) and every
-   plain attention function watched; prints prefill ms by prompt length,
+   TF32 products at the tensor cores' rate).  Then the decode-attention
+   kernel (``decode_attn.cu``; ptxas lines printed) against its plain
+   version in float32 (atol = rtol = 1e-4) and bfloat16 (1e-2) at the
+   benchmark's cells' shapes (Hq 48, Hkv 8, D 128: 256 slots of 2,600
+   with lengths 64-2,560 and the 4,096 window, 64 of 4,096 with lengths
+   128-4,096, 4 of 8,192 with lengths 4,096-8,064), timed in bfloat16
+   beside its bound (the live k and v, q and the output at 3.35 TB/s),
+   its plain version and ``scaled_dot_product_attention`` with the same
+   mask (the yardstick), all device time from the profiler.  Then
+   gemma3-1b at full width in bfloat16, random weights from a seed,
+   served by ``ServingEngine(n_slots=4, max_len=4096)``: 8 greedy
+   requests of 37 to 2,048 prompt tokens, 32 new tokens each, with the
+   launch counts set to 0 before and read after (flash launches must be
+   26 x 8, decode-attention launches 26 a decode step) and every plain
+   attention function watched; prints prefill ms by prompt length,
    decode step ms, tokens/s and the card's busy share of a traced
    prefill and decode step.  Last, a 1,000-token prefill of that bf16
    model through the kernel and through the plain attention give the
@@ -195,7 +204,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    a seed, depth cut and printed, each model freed before the next),
    with the launch counts set to 0 before and read after each counted
    run (flash launches exactly one per attention layer, encoder layer
-   and cross-attention of each prefill; every plain version watched):
+   and cross-attention of each prefill, decode-attention launches one per
+   decoder attention layer and cross-attention of each decode step; every
+   plain version watched):
    (a) mixtral-8x22b at 4 layers (all windowed, all MoE) served by
    ``ServingEngine(n_slots=4, max_len=8192)``, 8 greedy requests of 37
    to 4,608 prompt tokens (the last two wrap the 4,096-slot rings), 16
@@ -1502,14 +1513,15 @@ def phase_step_kernels(rates: Rates) -> dict:
 @contextlib.contextmanager
 def counting_plain_versions():
     """Counts, by name, every call of a plain version made while the
-    block runs: those of ``repro_torch.kernels.ref``, the flash kernel's
-    (``flash_attention_ref``) and the prefill's plain attention
-    (``attention.chunked_attention``)."""
-    from repro_torch.kernels import flash_attention, ref
+    block runs: those of ``repro_torch.kernels.ref``, the flash and decode
+    kernels' (``flash_attention_ref``, ``decode_attention_ref``) and the
+    prefill's plain attention (``attention.chunked_attention``)."""
+    from repro_torch.kernels import decode_attention, flash_attention, ref
     from repro_torch.models.layers import attention
 
     calls = collections.Counter()
-    saved = [(mod, name, fn) for mod in (ref, flash_attention)
+    saved = [(mod, name, fn)
+             for mod in (ref, flash_attention, decode_attention)
              for name, fn in vars(mod).items()
              if name.endswith("_ref") and callable(fn)]
     saved.append((attention, "chunked_attention",
@@ -2436,6 +2448,101 @@ def phase_flash_kernel() -> dict:
     return out
 
 
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attn.cu"
+# (name, B, Hq, Hkv, D, S, lengths' range, window) at the benchmark's
+# cells: mixtral-longgen's 256 slots of 2,600 (prompts 64-512, outputs
+# 512-2,048: lengths 64-2,560; the 4,096 window past them), mixtral-chat's
+# 64-slot ring of 4,096 (some slots full), grok1-longdoc's 4 slots of
+# 8,192 (prompts 4,096-8,064: the split path)
+DECODE_SHAPES = (
+    ("longgen", 256, 48, 8, 128, 2600, (64, 2560), 4096),
+    ("chat", 64, 48, 8, 128, 4096, (128, 4096), None),
+    ("longdoc", 4, 48, 8, 128, 8192, (4096, 8064), None),
+)
+# atol = rtol against the plain version: float32 as the flash kernel's;
+# bf16 one ulp of one rounding of a float32 result (2**-7 of the value)
+DECODE_DTYPES = ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 1e-2))
+
+
+def decode_live_bytes(lens, window, b, hq, hkv, d, s, elem) -> int:
+    """Bytes the decode kernel must move: each row's live k and v (as the
+    plain version masks them), q read and the output written once."""
+    n = np.broadcast_to(np.asarray(lens, np.int64), (b,))
+    lo = np.maximum(n - window, 0) if window else np.zeros(b, np.int64)
+    live = int(np.maximum(np.minimum(n, s) - lo, 0).sum())
+    return elem * d * (2 * hkv * live + 2 * b * hq)
+
+
+def phase_decode_kernel() -> dict:
+    """Phase 9d: the decode-attention kernel's build (ptxas lines), then
+    the kernel against its plain version at the benchmark's three cells'
+    shapes in both dtypes, and timed in bf16 (the served dtype) beside its
+    live-bytes bound, the plain version and SDPA (the yardstick)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    for fn, line in ptxas_report("decode_attn").items():
+        print(f"ptxas {fn}: {line}", flush=True)
+    dev = torch.device("cuda")
+    out = {}
+    for name, b, hq, hkv, d, s, (n0, n1), window in DECODE_SHAPES:
+        rng = np.random.default_rng(s + b)
+        lens_np = rng.integers(n0, n1 + 1, b)
+        lens = torch.from_numpy(lens_np).to(dev)
+        base = [torch.from_numpy(rng.standard_normal(sz, dtype=np.float32))
+                .to(dev) for sz in ((b, hq, 1, d), (b, hkv, s, d),
+                                    (b, hkv, s, d))]
+        for dtype, dname, tol in DECODE_DTYPES:
+            q, k, v = (x.to(dtype) for x in base)
+            kw = dict(window=window)
+            got = decode_attention(q, k, v, lens, **kw)
+            torch.cuda.synchronize()
+            want = decode_attention(q, k, v, lens, backend="ref", **kw)
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"decode_attention at {name} {dname}: max |kernel - "
+                     f"plain| {err} exceeds atol = rtol = {tol}")
+            del want
+            if dtype != torch.bfloat16:
+                print(f"kernel decode_attention @ {name} {dname}: within "
+                      f"{tol} max_abs_err={err}", flush=True)
+                continue
+            mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])
+            if window:
+                mask &= torch.arange(s, device=dev)[None, :] \
+                    > lens[:, None] - 1 - window
+            mask = mask[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = functools.partial(sdpa, q, k, v, attn_mask=mask,
+                                    enable_gqa=True)
+            lib_err = float((lib().float() - got.float()).abs().max())
+            ms = kernel_ms(lambda: decode_attention(q, k, v, lens, **kw),
+                           "decode_attn", 20)
+            plain = functools.partial(decode_attention, q, k, v, lens,
+                                      backend="ref", **kw)
+            plain_ms = call_device_ms(plain, 5, f"the plain decode_attention "
+                                      f"at {name}")
+            library_ms = call_device_ms(lib, 20, f"sdpa at {name}")
+            moved = decode_live_bytes(lens_np, window, b, hq, hkv, d, s, 2)
+            bound_ms = 1e3 * moved / HBM_BYTES_PER_S
+            shape = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s} lengths "
+                     f"{n0}-{n1} (mean {lens_np.mean()}) window={window} "
+                     f"{dname}")
+            print(f"kernel decode_attention @ {name} ({shape}): within {tol} "
+                  f"max_abs_err={err} ms={ms} bound_ms={bound_ms} (bytes: "
+                  f"{moved} live k, v, q and out at 3.35 TB/s) "
+                  f"bound/kernel {bound_ms / ms} plain_ms={plain_ms} "
+                  f"library_ms={library_ms} (sdpa with a mask, max |sdpa - "
+                  f"kernel| {lib_err}), kernel/sdpa {ms / library_ms}",
+                  flush=True)
+            out[name] = dict(max_abs_err=err, ms=ms, bound_ms=bound_ms,
+                             bound_by="bytes", plain_ms=plain_ms,
+                             library_ms=library_ms)
+        del base, q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def busy_share(fn) -> tuple[float, float, str]:
     """(wall us, card busy share, heaviest device work) of one call of
     ``fn`` under ``torch.profiler``, in the first session that records
@@ -2550,6 +2657,7 @@ def phase_lm_slice():
                  f"done={r.done} with {len(r.output)} tokens")
     want = {k: 0 for k in launches}
     want["flash_attention"] = cfg.n_layers * len(reqs)
+    want["decode_attention"] = decode_layers(model) * len(decode_ms)
     if launches != want:
         fail(f"the LM slice launched {launches}, expected {want}")
     print(f"lm slice: {len(reqs)} requests x {LM_NEW_TOKENS} tokens done in "
@@ -3050,6 +3158,13 @@ def flash_layers(model) -> int:
             + sum(k.cross_attn for k in kinds))
 
 
+def decode_layers(model) -> int:
+    """Decode-attention launches one decode step makes: one per decoder
+    attention layer and cross-attention."""
+    return (sum(k.mixer.startswith("attn") for k in model.kinds)
+            + sum(k.cross_attn for k in model.kinds))
+
+
 @contextlib.contextmanager
 def recording_routes():
     """Records the experts (int[N, k]) of every MoE routing made while
@@ -3224,6 +3339,7 @@ def serve_family(model, lengths, new_tokens: int, n_slots: int,
                  f"tokens) ended done={r.done} with {len(r.output)} tokens")
     want = {k: 0 for k in launches}
     want["flash_attention"] = flash_layers(model) * len(reqs)
+    want["decode_attention"] = decode_layers(model) * len(decode_ms)
     if launches != want:
         fail(f"{cfg.name} served with launches {launches}, expected {want}")
     drops = route_drops(model, routes) if cfg.n_experts else 0
@@ -3274,6 +3390,7 @@ def drive_family(model, prompt, steps: int, max_len: int, **front):
     check_tokens(cfg.name, logits, out, cfg.vocab_size)
     want = {k: 0 for k in launches}
     want["flash_attention"] = flash_layers(model)
+    want["decode_attention"] = decode_layers(model) * steps
     if launches != want:
         fail(f"{cfg.name} launched {launches}, expected {want}")
     print(f"lm families: {cfg.name} prefill of {clen - steps} positions "
@@ -4542,7 +4659,8 @@ def main() -> None:
     t0 = time.perf_counter()
     ops.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for source in ("snn_infer", "snn_train", "snn_step", "flash_attn"):
+    for source in ("snn_infer", "snn_train", "snn_step", "flash_attn",
+                   "decode_attn"):
         log = build.library_path(source).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -4582,6 +4700,7 @@ def main() -> None:
 
     # phase 9: the LM slice (flash attention), gemma3-1b at full width
     flash = phase_flash_kernel()
+    decode = phase_decode_kernel()
     lm_launches, model = phase_lm_slice()
     phase_lm_correctness(model)
     del model
@@ -4708,6 +4827,17 @@ def main() -> None:
         "shape": "gemma-global-bf16",
         **{shape: t for shape, t in flash.items()
            if shape != "gemma-global-bf16"}})
+    kernels.append({
+        "name": "decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": None,
+        "launches": lm_launches["decode_attention"],
+        "lm_family_launches": family_launches["decode_attention"],
+        "distributed_launches": dist_launches.get("decode_attention", 0),
+        "max_abs_err": max(t["max_abs_err"] for t in decode.values()),
+        **{k: decode["longgen"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+        "shape": "longgen",
+        **{shape: t for shape, t in decode.items() if shape != "longgen"}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

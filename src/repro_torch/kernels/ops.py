@@ -28,9 +28,11 @@ its LFSR lanes) is then one per stream ([B, n, w]) or one shared by all
 ([n, w]), which the kernels read with a stream stride of 0.  No padding
 is needed: shapes are the caller's own.
 
-``launch_counts`` also lists ``flash_attention``, whose wrapper (the LM
-slice's prefill attention, ``csrc/flash_attn.cu``) lives in
-``kernels/flash_attention.py`` beside its plain version.
+``launch_counts`` also lists ``flash_attention`` and
+``decode_attention``, whose wrappers (the LM's prefill attention,
+``csrc/flash_attn.cu``, and its decode attention, ``csrc/decode_attn.cu``)
+live in ``kernels/flash_attention.py`` and ``kernels/decode_attention.py``
+beside their plain versions.
 
 Each step op can launch as a programmatic dependent of the stream's
 previous kernel (``dependent=True``): its blocks start while that one
@@ -61,7 +63,8 @@ from repro_torch.core.bitpack import as_i32
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-_SOURCES = ("snn_infer", "snn_train", "snn_step", "flash_attn")
+_SOURCES = ("snn_infer", "snn_train", "snn_step", "flash_attn",
+            "decode_attn")
 _BACKENDS = ("kernel", "ref")
 
 _MAX_GRID_Y = 65_535      # samples ride the grid's y dimension
@@ -91,11 +94,15 @@ _SIGNATURES = {
     "flash_attn": (("flash_attn_forward", "pppp lllllllll iiiiiiiii f p",
                     "i"),
                    ("flash_attn_smem_bytes", "ii", "l")),
+    "decode_attn": (("decode_attn_forward",
+                     "pppppp llllllllll iiiiiiiiii f p", "i"),
+                    ("decode_attn_plan", "iiiiii p", "i")),
 }
 _ERROR_STRING = {"snn_infer": "snn_error_string",
                  "snn_train": "snn_train_error_string",
                  "snn_step": "snn_step_error_string",
-                 "flash_attn": "flash_attn_error_string"}
+                 "flash_attn": "flash_attn_error_string",
+                 "decode_attn": "decode_attn_error_string"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
            "f": ctypes.c_float}
 
@@ -175,12 +182,13 @@ def train_smem_bytes(rows: int, words: int, encode: bool,
 
 
 def _wrappers():
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     return (infer_window_batch_encode, infer_window_batch,
             train_window_batch, train_window_batch_encode,
             fused_snn_window, fused_snn_window_encode,
             fused_snn_step, spike_process, lif_step, stdp_update,
-            flash_attention)
+            flash_attention, decode_attention)
 
 
 def launch_counts() -> dict[str, int]:

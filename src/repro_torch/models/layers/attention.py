@@ -8,8 +8,11 @@ Three execution paths, all matching ``repro_torch.kernels.ref.attention_ref``:
   PyTorch, the same math; the prefill's path on the CPU, or anywhere
   with ``backend="ref"``.
 * ``decode_attention`` — one-token query against a KV cache laid out
-  [B, Hkv, S, D], plain PyTorch on every device (the JAX package too
-  computes it outside any kernel of its own).
+  [B, Hkv, S, D]: on a card the decode kernel
+  (``repro_torch.kernels.decode_attention``, ``kernels/csrc/decode_attn.cu``),
+  which reads each sequence's live positions of the cache in place;
+  elsewhere its plain version (the JAX package computes it outside any
+  kernel of its own).
 
 Cross-attention (whisper's decoder) takes q from the decoder stream and
 k, v from the encoder's output: the same three paths, not causal.
@@ -37,6 +40,8 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import is_dtensor as _is_dtensor
 from repro_torch.distributed.sharding import matmul
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import \
+    decode_attention as kernel_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers.init import normal
 from repro_torch.models.layers.rope import apply_rope, apply_rope_per_batch
@@ -257,29 +262,17 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     q: [B, Hq, 1, D]; caches: [B, Hkv, S, D]; cache_len: int OR int[B]
     (per-sequence — continuous batching) number of valid positions (the
     new token's kv must already be written at position cache_len - 1).
+    On a CUDA tensor it is the decode kernel
+    (``repro_torch.kernels.decode_attention``), which reads each
+    sequence's live positions in place; elsewhere its plain version.
     DTensors (under a mesh) attend on each rank's local tensors
     (:func:`_sharded_decode_attention`).
     """
     if _is_dtensor(q) or _is_dtensor(k_cache):
         return _sharded_decode_attention(q, k_cache, v_cache, cache_len,
                                          window)
-    b, hq, _, d = q.shape
-    hkv, s_len = k_cache.shape[1], k_cache.shape[2]
-    group = hq // hkv
-    scale = d ** -0.5
-    cl = torch.as_tensor(cache_len, device=q.device)
-    if cl.ndim == 1:
-        cl = cl[:, None, None, None]
-    qg = (q.float() * scale).reshape(b, hkv, group, d)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
-    k_pos = torch.arange(s_len, device=q.device)
-    mask = k_pos[None, None, None, :] < cl
-    if window is not None:
-        mask = mask & (k_pos[None, None, None, :] > cl - 1 - window)
-    s = torch.where(mask, s, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    return kernel_decode_attention(q, k_cache, v_cache, cache_len,
+                                   window=window)
 
 
 # --- full layer forward passes ------------------------------------------------

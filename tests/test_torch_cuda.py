@@ -263,7 +263,8 @@ def test_cuda_integrity_reserve_runs_a_kernel(cuda):
                                    "spike_process": 0,
                                    "lif_step": 0,
                                    "stdp_update": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
     inten = torch.from_numpy(np.stack([r.intensities for r in reqs]))
     seeds = torch.tensor([r.seed for r in reqs])
     tt = torch.tensor([r.n_steps for r in reqs], dtype=torch.int32)
@@ -1038,6 +1039,220 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention(qb, kb, torch.zeros(
             (1, 2, 16, 68), dtype=torch.bfloat16, device=cuda)[..., :64])
     assert flash_attention(wide[..., 8:72], kb, vb).shape == qb.shape
+
+
+# --- decode attention ------------------------------------------------------
+
+# (name, B, Hq, Hkv, D, S, lengths, window): lengths "ragged" draws each
+# row's from 1..S (1 and S among them), "ring" a ring's valid count
+# min(n + 1, S) with n drawn from 0..1.5 S (some rows wrapped), a list
+# gives them, an int is one length for every row (passed as an int)
+DECODE_SHAPES = [
+    # the benchmark's cells: mixtral-longgen (256 slots, max_len 2,600,
+    # the 4,096 window past every length), mixtral-chat (the 4,096-slot
+    # ring), grok1-longdoc (4 slots of 8,192: the split path)
+    ("longgen", 256, 48, 8, 128, 2600, "ragged", 4096),
+    ("chat-ring", 64, 48, 8, 128, 4096, "ring", None),
+    ("longdoc", 4, 48, 8, 128, 8192, [8192, 4097, 6000, 16], None),
+    # gemma3-1b's head_dim 256 with its 512 window over a plain cache
+    ("gemma-window", 4, 4, 1, 256, 1024, "ragged", 512),
+    ("gemma-ring", 3, 4, 1, 256, 512, "ring", None),
+    # group 1 (whisper's self-attention), whisper's cross-attention over
+    # its 1,500 frames with a scalar length, the reduced configs' head_dim
+    ("group-1", 3, 12, 12, 64, 448, "ragged", None),
+    ("whisper-cross", 2, 12, 12, 64, 1500, 1500, None),
+    ("reduced", 3, 4, 2, 32, 64, "ragged", 16),
+    # groups of 12 (starcoder2: two blocks of 6 heads), 16 (llama3: two
+    # of 8) and 3 (three of 1)
+    ("group-12", 2, 24, 2, 128, 700, "ragged", None),
+    ("group-16", 2, 128, 8, 128, 300, "ragged", None),
+    ("group-3", 2, 6, 2, 64, 300, "ragged", None),
+    # a length of 1; lengths past S with a window; a length of 0 (masked
+    # everywhere: uniform over all S positions, as the plain softmax)
+    ("length-1", 2, 48, 8, 128, 2600, [1, 1], None),
+    ("edges", 4, 8, 2, 128, 100, [0, 1, 150, 100], 60),
+]
+
+
+def _decode_lengths(spec, b, s, rng):
+    if isinstance(spec, int):
+        return spec
+    if spec == "ragged":
+        n = rng.integers(1, s + 1, b)
+        n[0], n[-1] = 1, s
+    elif spec == "ring":
+        n = np.minimum(rng.integers(0, s + s // 2, b) + 1, s)
+    else:
+        n = np.asarray(spec)
+    return torch.from_numpy(n.astype(np.int64))
+
+
+def _decode_operands(shape, dtype, dev, seed=0):
+    _, b, hq, hkv, d, s, spec, window = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sz, dtype=np.float32))
+               .to(dev, dtype)
+               for sz in ((b, hq, 1, d), (b, hkv, s, d), (b, hkv, s, d)))
+    lens = _decode_lengths(spec, b, s, rng)
+    return q, k, v, (lens.to(dev) if torch.is_tensor(lens) else lens), window
+
+
+def _dead_positions(lens, window, b, s, dev):
+    """bool[B, S]: the positions the plain version masks in each row
+    (none where it masks all of them)."""
+    n = torch.as_tensor(lens, device=dev).reshape(-1, 1).expand(b, 1)
+    pos = torch.arange(s, device=dev)[None, :]
+    live = pos < n
+    if window is not None:
+        live &= pos > n - 1 - window
+    return ~live & live.any(dim=1, keepdim=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=lambda s: s[0])
+def test_cuda_decode_attention_equals_plain_version(cuda, shape, dtype,
+                                                    tol):
+    """The kernel against ``decode_attention_ref`` on the card.  float32
+    within the flash test's 1e-4: both are float32 throughout and differ
+    only in the order of the sums (over D, and over positions and splits
+    in the online softmax) and in exp2 on the special-function unit.
+    bf16 within 1e-2, tighter than the flash test's 3e-2: the kernel
+    computes in float32 as the plain version does, so the two round one
+    float32 result each to bf16 once, one ulp apart at most (2**-7 of the
+    value)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, k, v, lens, window = _decode_operands(shape, dtype, cuda)
+    launches = decode_attention.launches
+    got = decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launches + 1
+    want = decode_attention(q, k, v, lens, window=window, backend="ref")
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # int32 lengths, and a length on the device for every row, read alike
+    if torch.is_tensor(lens):
+        assert torch.equal(decode_attention(q, k, v, lens.int(),
+                                            window=window), got)
+    else:
+        n = torch.tensor(lens, device=cuda)
+        assert torch.equal(decode_attention(q, k, v, n, window=window), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["longgen", "longdoc", "gemma-window",
+                                  "edges"])
+def test_cuda_decode_attention_never_reads_dead_positions(cuda, name,
+                                                          dtype):
+    """NaN in every position the mask leaves out (past each row's length,
+    before its window) changes nothing: the kernel never reads them."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    shape = next(s for s in DECODE_SHAPES if s[0] == name)
+    q, k, v, lens, window = _decode_operands(shape, dtype, cuda, seed=1)
+    clean = decode_attention(q, k, v, lens, window=window)
+    dead = _dead_positions(lens, window, k.shape[0], k.shape[2], cuda)
+    assert dead.any()
+    for c in (k, v):
+        c.masked_fill_(dead[:, None, :, None], float("nan"))
+    got = decode_attention(q, k, v, lens, window=window)
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_reads_strided_views(cuda):
+    """q as the transposed view of a fused qkv projection (the model's
+    layout) and caches cut from larger ones give the output of contiguous
+    copies."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    b, hq, hkv, d, s = 5, 48, 8, 128, 700
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(b, 1, (hq + 2 * hkv) * d, device=cuda).to(dtype)
+        q = qkv[..., :hq * d].reshape(b, 1, hq, d).transpose(1, 2)
+        big = torch.randn(2, b + 1, hkv + 2, s + 40, d,
+                          device=cuda).to(dtype)
+        k, v = big[0, 1:, 2:, 40:], big[1, :b, 1:hkv + 1, :s]
+        lens = torch.tensor([1, 700, 350, 17, 699], device=cuda)
+        got = decode_attention(q, k, v, lens, window=300)
+        want = decode_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), lens, window=300)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, k, v, lens, _ = _decode_operands(
+        ("t", 2, 4, 2, 64, 32, "ragged", None), torch.float32, cuda)
+    launches = decode_attention.launches
+    bad = [
+        (q.half(), k.half(), v.half(), lens, {}),           # float16
+        (q, k.bfloat16(), v.bfloat16(), lens, {}),          # mixed dtypes
+        (q[..., :48], k[..., :48], v[..., :48], lens, {}),  # head_dim 48
+        (q[:, :3], k, v, lens, {}),          # 3 query heads over 2 KV heads
+        (q.expand(2, 4, 2, 64), k, v, lens, {}),            # two tokens
+        (q[..., ::2], k[..., ::2], v[..., ::2], lens, {}),  # strided last dim
+        (q, k.cpu(), v, lens, {}),                          # k on the CPU
+        (q, k, v, lens, {"window": 0}),
+        (q, k[:, :, :0], v[:, :, :0], lens, {}),            # no position
+        (q, k, v, lens.float(), {}),                        # float lengths
+        (q, k, v, lens[:1].expand(3), {}),                  # 3 lengths of 2
+        # 16-byte copies: a base 4 bytes off, positions 264 bytes apart
+        (q, torch.zeros(2, 2, 32, 72, device=cuda)[..., 1:65], v, lens, {}),
+        (q, k, torch.zeros(2, 2, 32, 66, device=cuda)[..., :64], lens, {}),
+    ]
+    for qq, kk, vv, n, kw in bad:
+        with pytest.raises(ValueError):
+            decode_attention(qq, kk, vv, n, **kw)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="no backward"):
+        decode_attention(q, k, v, lens)
+    assert decode_attention.launches == launches
+    with torch.no_grad():
+        assert not decode_attention(q, k, v, lens).requires_grad
+    assert decode_attention.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [("mixtral-8x22b", torch.bfloat16),
+                                        ("gemma3-1b", torch.float32)])
+def test_cuda_serving_launches_decode_attention_a_layer_a_step(cuda, arch,
+                                                               dtype):
+    """``ServingEngine`` on the card decodes through the kernel: its
+    launches are the attention layers times the decode steps, and no plain
+    decode attention runs."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import decode_attention as mod
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(get_config(arch))
+    model = Model(cfg, dtype, device=cuda, seed=5)
+    eng = ServingEngine(model, n_slots=3, max_len=48)
+    reqs = [Request(rid=i, prompt=list(range(2 + i, 9 + 5 * i)),
+                    max_new_tokens=7 + 3 * i) for i in range(4)]
+    steps, decode, ref, plain = [0], model.decode_step, \
+        mod.decode_attention_ref, []
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return decode(*args, **kwargs)
+
+    def watched(*args, **kwargs):
+        plain.append(1)
+        return ref(*args, **kwargs)
+
+    model.decode_step, mod.decode_attention_ref = counted, watched
+    try:
+        ops.reset_launch_counts()
+        eng.run(reqs)
+        launches = ops.launch_counts()["decode_attention"]
+    finally:
+        mod.decode_attention_ref = ref
+        del model.decode_step
+    assert all(r.done for r in reqs) and steps[0] > 0 and not plain
+    layers = sum(k.mixer.startswith("attn") for k in model.kinds)
+    assert launches == layers * steps[0]
 
 
 @pytest.mark.gpu

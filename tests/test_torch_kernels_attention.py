@@ -125,3 +125,59 @@ def test_kernel_strides_are_the_callers_with_size_one_dims_packed(make,
     from repro_torch.kernels.flash_attention import _strides
 
     assert _strides(make()) == want
+
+
+def test_decode_wrapper_sends_cpu_tensors_and_ref_to_the_plain_version(
+        monkeypatch):
+    """``decode_attention`` runs ``decode_attention_ref`` for CPU tensors
+    and for ``backend="ref"``, launching nothing, and takes no other
+    backend."""
+    from repro_torch.kernels import decode_attention as mod
+
+    calls, ref = [], mod.decode_attention_ref
+
+    def plain(*args, **kwargs):
+        calls.append(kwargs["window"])
+        return ref(*args, **kwargs)
+
+    monkeypatch.setattr(mod, "decode_attention_ref", plain)
+    q, k, v = map(torch.from_numpy, _qkv(6, 2, 4, 2, 1, 24, 32))
+    lens = torch.tensor([5, 24])
+    before = ops.launch_counts()
+    want = plain(q, k, v, lens, window=8)
+    calls.clear()
+    for kw in ({}, {"backend": "ref"}):
+        got = mod.decode_attention(q, k, v, lens, window=8, **kw)
+        assert torch.equal(got, want)
+    assert calls == [8, 8]
+    assert ops.launch_counts() == before
+    assert before["decode_attention"] == mod.decode_attention.launches
+    with pytest.raises(ValueError):
+        mod.decode_attention(q, k, v, lens, backend="tpu")
+
+
+@pytest.mark.parametrize("cache_len,want", [
+    (7, (0, None, 0, 7)),
+    (np.int32(7), (0, None, 0, 7)),
+    (torch.tensor(7), (0, None, 0, 7)),
+    (torch.tensor([3, 9], dtype=torch.int32), (1, [3, 9], 1, 0)),
+    (torch.tensor([3, 9, 4, 1])[::2], (2, [3, 4], 2, 0)),
+], ids=["int", "numpy-int", "host-scalar", "int32-rows", "strided-int64"])
+def test_decode_lengths_as_the_kernel_reads_them(cache_len, want):
+    """A length on the host for every row is passed by value; per-row
+    lengths stay a tensor (kind 1: int32, 2: int64) with their stride."""
+    from repro_torch.kernels.decode_attention import _lengths
+
+    kind, lens, stride, value = _lengths(cache_len, 2, torch.device("cpu"))
+    got = (kind, None if lens is None else lens.tolist(), stride, value)
+    assert got == want
+
+
+@pytest.mark.parametrize("cache_len", [
+    torch.tensor([3.0, 9.0]), torch.tensor([3, 9, 4]),
+    torch.tensor([[3], [9]])])
+def test_decode_lengths_refuse_what_the_kernel_does_not_read(cache_len):
+    from repro_torch.kernels.decode_attention import _lengths
+
+    with pytest.raises(ValueError):
+        _lengths(cache_len, 2, torch.device("cpu"))
